@@ -1,0 +1,108 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
+into ``build/repro_torch_kernels/<name>-<hash>.so`` at the repository root,
+keyed by a hash of the source and the flags, so an edited source rebuilds
+and an unchanged one loads. :func:`build` starts one ``nvcc`` per missing
+library, all at once. Nothing here runs at import: the CPU tests import
+every module of the port, and there is no ``nvcc`` without CUDA.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+:func:`check` raises on anything but 0, because a refused launch never runs
+and ``torch.cuda.synchronize()`` does not report it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().with_name("csrc")
+NAMES = ("pq_pairwise", "hop_adc", "adc_scan")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError(f"nvcc not found on PATH or under {home}")
+    return str(path)
+
+
+def lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def build(names=NAMES) -> dict[str, str]:
+    """Compile every library in ``names`` that is not built yet, one
+    ``nvcc`` process per source, all started together. Returns each
+    compiled source's ``ptxas`` report (registers, shared memory, spills);
+    raises with the compiler's output if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    reports, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        reports[name] = log
+        if proc.returncode:
+            failed.append(f"nvcc failed for {name}.cu:\n{log}")
+            continue
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            path = lib_path(name)
+            if not path.exists():
+                build((name,))
+            lib = ctypes.CDLL(str(path))
+            err_fn = getattr(lib, f"{name}_error_string")
+            err_fn.argtypes = [ctypes.c_int]
+            err_fn.restype = ctypes.c_char_p
+            _libs[name] = lib
+        return lib
+
+
+def check(name: str, err: int) -> None:
+    """Raise if a C entry point of library ``name`` returned a CUDA error."""
+    if err:
+        msg = getattr(load(name), f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
+
+
+def stream_handle(device) -> ctypes.c_void_p:
+    """PyTorch's current stream on ``device``, as the C entry points take it."""
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
