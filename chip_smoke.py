@@ -8,23 +8,34 @@
 Phases, each of which ends the run with a non-zero exit when it fails:
 
 1. device: the card's ``nvidia-smi`` name and power limit, torch's name;
-2. build: the three CUDA kernels from ``src/repro_torch/kernels/csrc``, one
+2. build: the five CUDA kernels from ``src/repro_torch/kernels/csrc``, one
    ``nvcc`` per source, all at once;
 3. parity: each kernel against its plain PyTorch version on CUDA tensors, at
-   the main path's shapes and at edge shapes, then CUDA-event times of the
-   kernel, the plain version and, where one PyTorch call computes the same
-   function, that call (``hop_adc``, shorter than its Python launch, is
-   timed by replaying a captured CUDA graph of many launches);
+   the main path's shapes and at edge shapes (the fs4 kernels ``hop_adc_fs``
+   and ``adc_scan_fs`` exactly, on their int32 sums), then CUDA-event times
+   of the kernel, the plain version and, where one PyTorch call computes the
+   same function, that call (``hop_adc`` and ``hop_adc_fs``, shorter than
+   their Python launch, are timed by replaying a captured CUDA graph of many
+   launches; the fs4 dequant pass is timed beside ``adc_scan_fs``);
 4. small reference: the unit-test dataset served on the card and on the CPU
    (the plain versions) from the same graph and quantizer must agree;
-5. main path at full width: ``load_dataset("sift", scale=10)``, ``knn_ids``
+5. u8 path at full width: ``load_dataset("sift", scale=10)``, ``knn_ids``
    ground truth, ``train_pq(M=16, K=256)``, ``build_vamana(r=64, l=128)``,
    the graph's own recall@10 under exact-distance routing, ``encode``,
    ``InMemoryEngine`` / ``HybridEngine`` search (k=10, h=32) and the
    exhaustive ADC of ``pq.base.adc``, with every kernel's launch count read
-   around this phase alone.
+   around this phase alone;
+6. fs4 path at full width, on phase 5's dataset and graph:
+   ``train_pq_fs4(M=16)``, ``encode`` + ``pack_codes``, quantized LUTs,
+   ``InMemoryEngine`` / ``HybridEngine`` search (k=10, h=32) and the
+   one-shard ``ShardedEngine`` scan with exact rerank (k=10), their QPS, a
+   traced fs4 search, launch counts read around this phase alone; then the
+   checks (kernel- vs plain-routed top-10, fs4 vs f32 ADC within M·scale,
+   fs4 memory below u8) and the times of the scan engine's dequant and
+   top-k at 1000 x 1M.
 
-The last three lines are the kernels JSON, the ``nvidia-smi`` line, and
+The last three lines are the kernels JSON (each kernel's ``launches`` summed
+over the two paths' counted runs), the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without CUDA, or run outside the repository, it exits non-zero and prints no
 result. It imports nothing of JAX and nothing of the JAX package.
@@ -64,6 +75,20 @@ def log(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
+
+
+def timed(times: dict, tag: str, label: str, fn):
+    """``fn()`` between two device synchronizations; its wall seconds go
+    into ``times[label]`` and a ``[tag]`` line."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    times[label] = time.perf_counter() - t0
+    log(f"[{tag}] {label}: {times[label]:.2f} s")
+    return out
 
 
 def cuda_ms(fn, *, iters: int, warmup: int = 2) -> float:
@@ -263,6 +288,116 @@ def parity_and_timing(n_base: int, n_query: int) -> dict:
     return {row["name"]: row for row in rows}
 
 
+def fs4_parity_and_timing(n_base: int, n_query: int) -> dict:
+    """Phase 3 for the fs4 kernels: int32 sums must equal the plain
+    versions' exactly (max abs error 0)."""
+    import torch
+
+    from repro_torch.kernels import adc_scan_fs as kadcfs
+    from repro_torch.kernels import hop_adc_fs as khopfs
+    from repro_torch.kernels import ops, ref
+    from repro_torch.pq import pack
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4321)
+    m = 16
+    errs = {"hop_adc_fs": 0.0, "adc_scan_fs": 0.0}
+
+    def exact(kernel, name, got, want):
+        errs[kernel] = max(errs[kernel], compare(name, got.double(), want.double(),
+                                                 rtol=0.0, atol=0.0))
+
+    def rand_packed(n, mm):
+        return pack.pack_codes(torch.randint(0, 16, (n, mm), generator=g, device=dev,
+                                             dtype=torch.int32))
+
+    def rand_luts(q, mm):
+        return torch.randint(0, 256, (q, mm, 16), generator=g, device=dev,
+                             dtype=torch.int32).to(torch.uint8)
+
+    # hop_adc_fs over the sentinel-padded full-width corpus: R'=64 (one beam
+    # round), the entry call R'=1, ragged 200 and 256, duplicates and the
+    # sentinel, odd m_prefix=5 of 16; odd M=7 with odd m_prefix=3, Q=37
+    packed_p = ops.pad_sentinel_row(rand_packed(n_base, m))
+    cases = []
+    for r, mp in ((64, 0), (1, 0), (200, 0), (256, 0), (64, 5)):
+        ids = torch.randint(0, n_base + 1, (n_query, r), generator=g, device=dev,
+                            dtype=torch.int32)
+        if r >= 8:
+            ids[:, : r // 4] = ids[:, r // 4: 2 * (r // 4)]   # duplicates
+            ids[:, -1] = n_base                               # sentinel row
+            ids[0, 0] = 0
+        cases.append((packed_p, ids, rand_luts(n_query, m), mp))
+    packed7 = ops.pad_sentinel_row(rand_packed(5003, 7))
+    for mp in (0, 3):
+        cases.append((packed7, torch.randint(0, 5004, (37, 72), generator=g, device=dev,
+                                             dtype=torch.int32), rand_luts(37, 7), mp))
+    for codes, ids, luts, mp in cases:
+        want = (ref.hop_adc_fs_acc(codes[:, :(mp + 1) // 2], ids, luts[:, :mp]) if mp
+                else ref.hop_adc_fs_acc(codes, ids, luts))
+        exact("hop_adc_fs", f"hop_adc_fs N+1={codes.shape[0]} M={luts.shape[1]} "
+              f"Q={ids.shape[0]} R'={ids.shape[1]} m_prefix={mp}",
+              khopfs.hop_adc_fs(codes, ids, luts, m_prefix=mp), want)
+
+    # adc_scan_fs: the main path's 1000 x N_base, held against the plain
+    # version in query chunks; ragged N, odd M, M=9 (5-byte rows: the byte-
+    # load path), M=32 (64 KB table), query counts off the 8-query tile
+    packed_full = packed_p[:n_base]
+    luts_full = rand_luts(n_query, m)
+    got = kadcfs.adc_scan_fs(packed_full, luts_full)
+    for q0 in range(0, n_query, 125):
+        exact("adc_scan_fs", f"adc_scan_fs N={n_base} M={m} queries {q0}:{q0 + 125}",
+              got[q0:q0 + 125], ref.adc_scan_fs_acc(packed_full, luts_full[q0:q0 + 125]))
+    del got
+    for n, mm, q in ((4099, 16, 13), (10007, 7, 8), (3001, 9, 1), (20000, 32, 21)):
+        codes, luts = rand_packed(n, mm), rand_luts(q, mm)
+        exact("adc_scan_fs", f"adc_scan_fs N={n} M={mm} Q={q}",
+              kadcfs.adc_scan_fs(codes, luts), ref.adc_scan_fs_acc(codes, luts))
+
+    # ---- times at the main path's shapes (kernel: the bare launch) ----
+    rows = []
+    ids, luts = cases[0][1], cases[0][2]
+    hout = torch.empty(ids.shape, dtype=torch.int32, device=dev)
+    distinct = int(torch.unique(ids).numel())
+    mb = packed_p.shape[1]
+    b_ms, b_by = bound(4 * ids.numel() + distinct * mb + luts.numel() + 4 * ids.numel(),
+                       ids.numel() * m)
+    rows.append(dict(
+        name="hop_adc_fs", route="cuda", source="src/repro_torch/kernels/csrc/hop_adc_fs.cu",
+        replaces="src/repro/kernels/hop_adc.py:254",
+        shape=f"packed ({n_base + 1},{mb}) u8, ids ({n_query},64), luts "
+              f"({n_query},{m},16) u8, one beam round",
+        max_abs_err=errs["hop_adc_fs"],
+        ms=graph_ms(lambda: khopfs.launch(packed_p, ids, luts, m, hout), iters=200),
+        plain_ms=graph_ms(lambda: ref.hop_adc_fs_acc(packed_p, ids, luts), iters=50),
+        issue_ms=cuda_ms(lambda: khopfs.launch(packed_p, ids, luts, m, hout), iters=200),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, library_call=None))
+
+    aout = torch.empty((n_query, n_base), dtype=torch.int32, device=dev)
+    scale = torch.rand(n_query, generator=g, device=dev) + 0.1
+    bias = torch.rand(n_query, generator=g, device=dev)
+    b_ms, b_by = bound(packed_full.numel() + luts_full.numel() + 4 * aout.numel(),
+                       aout.numel() * m)
+    rows.append(dict(
+        name="adc_scan_fs", route="cuda", source="src/repro_torch/kernels/csrc/adc_scan_fs.cu",
+        replaces="src/repro/kernels/adc_scan_fs.py:81",
+        shape=f"packed ({n_base},{mb}) u8 x luts ({n_query},{m},16) u8 -> int32",
+        max_abs_err=errs["adc_scan_fs"],
+        ms=cuda_ms(lambda: kadcfs.launch(packed_full, luts_full, aout), iters=5),
+        plain_ms=cuda_ms(lambda: ref.adc_scan_fs_acc(packed_full, luts_full),
+                         iters=2, warmup=1),
+        dequant_ms=cuda_ms(lambda: ops._dequant(aout, scale, bias, m), iters=5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, library_call=None))
+    for row in rows:
+        extra = (f" (back-to-back launches from the host: {row['issue_ms']:.4f} ms)"
+                 if "issue_ms" in row else
+                 f" (the dequant pass in ops: {row['dequant_ms']:.4f} ms)")
+        log(f"[time] {row['name']} {row['shape']}: kernel {row['ms']:.4f} ms{extra}, "
+            f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']}, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return {row["name"]: row for row in rows}
+
+
 # --------------------------------------------------------------------------
 # phase 4: the slice on a small input, card vs CPU
 # --------------------------------------------------------------------------
@@ -308,7 +443,7 @@ def small_reference() -> None:
 # phase 5: the main path at full width
 # --------------------------------------------------------------------------
 
-def device_busy(fn, wall_s: float) -> dict:
+def device_busy(fn, wall_s: float, label: str = "InMemoryEngine") -> dict:
     """Device time of one traced ``fn()`` by kernel name (torch.profiler),
     and its share of ``wall_s``, the untraced wall time of the same call.
     Kernels run on one stream, so their summed time is the busy time."""
@@ -325,9 +460,9 @@ def device_busy(fn, wall_s: float) -> dict:
     device_ms = sum(ms for ms, _ in per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:6]
     if device_ms == 0:
-        log("[trace] search: the profiler saw no device time (not measured)")
+        log(f"[trace] {label} search: the profiler saw no device time (not measured)")
         return {"device_ms": None, "wall_ms": wall_s * 1e3, "busy_share": None}
-    log(f"[trace] one InMemoryEngine search: device busy {device_ms:.2f} ms of "
+    log(f"[trace] one {label} search: device busy {device_ms:.2f} ms of "
         f"{wall_s * 1e3:.2f} ms untraced wall ({device_ms / (wall_s * 1e3):.3f}); "
         f"{sum(n for _, n in per_kernel.values())} kernels")
     for name, (ms, n) in top:
@@ -337,7 +472,7 @@ def device_busy(fn, wall_s: float) -> dict:
             "top": [(name[:90], ms, n) for name, (ms, n) in top]}
 
 
-def main_path(args) -> dict:
+def main_path(args) -> tuple[dict, object, object, object]:
     import torch
 
     from repro_torch.data import load_dataset
@@ -348,26 +483,17 @@ def main_path(args) -> dict:
     from repro_torch.search.engine import HybridEngine, InMemoryEngine
     from repro_torch.search.metrics import measure_qps, recall_at_k
 
-    def timed(label, fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        log(f"[main] {label}: {secs:.2f} s")
-        times[label] = secs
-        return out
-
     times: dict[str, float] = {}
+    timed_ = lambda label, fn: timed(times, "main", label, fn)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    ds = timed("load_dataset", lambda: load_dataset("sift", scale=args.scale))
+    ds = timed_("load_dataset", lambda: load_dataset("sift", scale=args.scale))
     log(f"[main] sift scale={args.scale}: base {tuple(ds.base.shape)}, queries "
         f"{tuple(ds.queries.shape)}, train {tuple(ds.train.shape)}")
-    gt, _ = timed("knn_ids", lambda: knn_ids(ds.base, ds.queries, 10, block=256))
-    model = timed("train_pq", lambda: train_pq(
+    gt, _ = timed_("knn_ids", lambda: knn_ids(ds.base, ds.queries, 10, block=256))
+    model = timed_("train_pq", lambda: train_pq(
         ds.train, 16, 256, generator=torch.Generator().manual_seed(1), iters=20))
-    graph = timed("build_vamana", lambda: build_vamana(
+    graph = timed_("build_vamana", lambda: build_vamana(
         ds.base, generator=torch.Generator().manual_seed(0), r=64, l=128,
         batch=args.vamana_batch))
     # the graph alone: exact-distance routing, which the quantizer cannot cap
@@ -380,15 +506,15 @@ def main_path(args) -> dict:
     del exact_fn, res_x
     log(f"[main] graph recall@10 under exact routing (batch {args.vamana_batch}): "
         f"h=32 {graph_rec[32]:.4f}, h=128 {graph_rec[128]:.4f}")
-    codes = timed("encode", lambda: base.encode(model, ds.base))
+    codes = timed_("encode", lambda: base.encode(model, ds.base))
     lut_fn = lambda q: base.build_lut(model, q)
     mem = InMemoryEngine(graph, codes, lut_fn)
     hyb = HybridEngine(graph, codes, lut_fn, vectors=ds.base)
-    res_m = timed("search_inmemory", lambda: mem.search(ds.queries, k=10, h=32))
-    res_h = timed("search_hybrid", lambda: hyb.search(ds.queries, k=10, h=32))
+    res_m = timed_("search_inmemory", lambda: mem.search(ds.queries, k=10, h=32))
+    res_h = timed_("search_hybrid", lambda: hyb.search(ds.queries, k=10, h=32))
     qps_m, _ = measure_qps(lambda q: mem.search(q, k=10, h=32), ds.queries)
     qps_h, _ = measure_qps(lambda q: hyb.search(q, k=10, h=32), ds.queries)
-    adc = timed("exhaustive_adc", lambda: base.adc(model, codes, ds.queries))
+    adc = timed_("exhaustive_adc", lambda: base.adc(model, codes, ds.queries))
     busy = device_busy(lambda: mem.search(ds.queries, k=10, h=32),
                        ds.queries.shape[0] / qps_m)
     counts = ops.launch_counts()
@@ -412,8 +538,8 @@ def main_path(args) -> dict:
     log(f"[main] QPS (batch of {ds.queries.shape[0]}, h=32): inmemory {qps_m:.1f} "
         f"hybrid {qps_h:.1f}; peak device memory {peak_gb:.2f} GiB")
     log(f"[main] launches: {counts}")
-    for name, n in counts.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    for name in ("pq_pairwise", "hop_adc", "adc_scan_batch"):
+        check(counts[name] > 0, f"kernel {name} was not launched on the main path")
     for name, v in rec.items():
         check(math.isfinite(v), f"recall {name} is not finite")
     check(res_m.ids.shape == (ds.queries.shape[0], 10), "InMemoryEngine result shape")
@@ -435,7 +561,123 @@ def main_path(args) -> dict:
                 "hybrid": qps_h}, launches=counts, peak_gib=peak_gb, search_busy=busy,
                 same_top10_plain=same, mean_degree=deg, graph_exact_recall=graph_rec,
                 vamana_batch=args.vamana_batch,
-                n_base=int(ds.base.shape[0]))
+                n_base=int(ds.base.shape[0])), ds, gt, graph
+
+
+# --------------------------------------------------------------------------
+# phase 6: the fs4 path at full width, on the u8 path's dataset and graph
+# --------------------------------------------------------------------------
+
+def fs4_path(ds, gt, graph) -> dict:
+    import torch
+
+    from repro_torch.kernels import adc_scan_fs as kadcfs
+    from repro_torch.kernels import ops, ref
+    from repro_torch.pq import base, pack, train_pq_fs4
+    from repro_torch.search import beam
+    from repro_torch.search.engine import (HybridEngine, InMemoryEngine,
+                                           ShardedEngine, topk_lower)
+    from repro_torch.search.metrics import measure_qps, recall_at_k
+
+    times: dict[str, float] = {}
+    timed_ = lambda label, fn: timed(times, "fs4", label, fn)
+    nq = ds.queries.shape[0]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    model = timed_("train_pq_fs4", lambda: train_pq_fs4(
+        ds.train, 16, generator=torch.Generator().manual_seed(1), iters=20))
+    codes = timed_("encode", lambda: base.encode(model, ds.base))
+    packed = pack.pack_codes(codes)
+    lut_fn = lambda q: base.build_lut(model, q, quantize=True)
+    mem = InMemoryEngine(graph, packed, lut_fn)
+    hyb = HybridEngine(graph, packed, lut_fn, vectors=ds.base)
+    shd = ShardedEngine(packed, lut_fn, vectors=ds.base)
+    res_m = timed_("search_inmemory", lambda: mem.search(ds.queries, k=10, h=32))
+    res_h = timed_("search_hybrid", lambda: hyb.search(ds.queries, k=10, h=32))
+    res_s = timed_("search_sharded", lambda: shd.search(ds.queries, k=10))
+    qps = {"inmemory": measure_qps(lambda q: mem.search(q, k=10, h=32), ds.queries)[0],
+           "hybrid": measure_qps(lambda q: hyb.search(q, k=10, h=32), ds.queries)[0],
+           "sharded": measure_qps(lambda q: shd.search(q, k=10), ds.queries)[0]}
+    busy = device_busy(lambda: mem.search(ds.queries, k=10, h=32),
+                       nq / qps["inmemory"], label="fs4 InMemoryEngine")
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    rec = {name: recall_at_k(r.ids, gt, 10)
+           for name, r in (("inmemory", res_m), ("hybrid", res_h), ("sharded", res_s))}
+    stats = {name: {"hops": float(r.hops.float().mean()),
+                    "n_dist": float(r.n_dist.float().mean()),
+                    "rounds": float(r.rounds.float().mean())}
+             for name, r in (("inmemory", res_m), ("hybrid", res_h), ("sharded", res_s))}
+    log(f"[fs4] recall@10 inmemory {rec['inmemory']:.4f} hybrid {rec['hybrid']:.4f} "
+        f"sharded (scan + rerank of 40) {rec['sharded']:.4f}")
+    log(f"[fs4] inmemory hops {stats['inmemory']['hops']:.2f} n_dist "
+        f"{stats['inmemory']['n_dist']:.2f} rounds {stats['inmemory']['rounds']:.2f}; "
+        f"sharded n_dist {stats['sharded']['n_dist']:.0f}")
+    log(f"[fs4] QPS (batch of {nq}): inmemory {qps['inmemory']:.1f} hybrid "
+        f"{qps['hybrid']:.1f} sharded {qps['sharded']:.1f}; peak device memory "
+        f"{peak_gb:.2f} GiB")
+    log(f"[fs4] launches: {counts}")
+    for name in ("pq_pairwise", "hop_adc_fs", "adc_scan_fs"):
+        check(counts[name] > 0, f"kernel {name} was not launched on the fs4 path")
+    for name, v in rec.items():
+        check(math.isfinite(v), f"fs4 recall {name} is not finite")
+    for name, r in (("inmemory", res_m), ("hybrid", res_h), ("sharded", res_s)):
+        check(r.ids.shape == (nq, 10), f"fs4 {name} result shape")
+        check(bool(torch.isfinite(r.dists).all()), f"fs4 {name} distances not finite")
+
+    # the same search routed by the plain hop_adc_fs version, on the card
+    codes_p = mem._codes_p
+    plain_fn = lambda ql, ids: ops._dequant(ref.hop_adc_fs_acc(codes_p, ids, ql.lut),
+                                            ql.scale, ql.bias, model.m)
+    res_p = beam.beam_search(graph.neighbors, graph.medoid, lut_fn(ds.queries),
+                             plain_fn, h=32, max_steps=512)
+    same = float((res_p.ids[:, :10] == res_m.ids).all(dim=1).float().mean())
+    log(f"[fs4] top-10 identical with the plain hop_adc_fs routing: {same:.4f} of queries")
+    check(same >= 0.99, "fs4 kernel-routed and plain-routed searches disagree")
+
+    # fs4 bulk distances within M·scale of the f32 ADC of the same K=16 model
+    q64 = ds.queries[:64]
+    ql = lut_fn(q64)
+    fs = ops.adc_scan_fs(packed, ql.lut, ql.scale, ql.bias)
+    f32 = ops.adc_scan_batch(codes, base.build_lut(model, q64))
+    ratio = float(((fs - f32).abs() / (model.m * ql.scale[:, None])).max())
+    log(f"[fs4] |fs4 - f32 ADC| / (M*scale) over 64 queries x {codes.shape[0]} rows: "
+        f"max {ratio:.4f} (bound 1)")
+    check(bool(((fs - f32).abs() <= model.m * ql.scale[:, None] + 1e-4).all()),
+          "fs4 bulk distances beyond M*scale of the f32 ADC")
+    del fs, f32
+
+    u8_lut = lambda q: base.build_lut(model, q)
+    mem_bytes = {"inmemory": (mem.memory_bytes(),
+                              InMemoryEngine(graph, codes, u8_lut).memory_bytes()),
+                 "sharded": (shd.memory_bytes(),
+                             ShardedEngine(codes, u8_lut, vectors=ds.base).memory_bytes())}
+    log(f"[fs4] memory_bytes fs4 vs u8 of the same model: {mem_bytes}")
+    for name, (b_fs, b_u8) in mem_bytes.items():
+        check(b_fs < b_u8, f"fs4 {name} memory_bytes not below u8")
+
+    # what the scan engine spends around the kernel, at 1000 x N
+    ql = lut_fn(ds.queries)
+    acc = kadcfs.adc_scan_fs(packed, ql.lut)
+    d = ops._dequant(acc, ql.scale, ql.bias, model.m)
+    scan = {"dequant_ms": cuda_ms(lambda: ops._dequant(acc, ql.scale, ql.bias, model.m),
+                                  iters=5),
+            "topk_lower_40_ms": cuda_ms(lambda: topk_lower(d, 40), iters=3),
+            "topk_lower_10_ms": cuda_ms(lambda: topk_lower(d, 10), iters=3),
+            "torch_topk_40_ms": cuda_ms(lambda: torch.topk(d, 40, dim=1, largest=False),
+                                        iters=3),
+            "stable_sort_ms": cuda_ms(lambda: torch.sort(d, dim=1, stable=True),
+                                      iters=2, warmup=1)}
+    del acc, d
+    log(f"[fs4] scan engine at {nq} x {codes.shape[0]}: dequant "
+        f"{scan['dequant_ms']:.3f} ms, stable top-40 {scan['topk_lower_40_ms']:.3f} ms, "
+        f"stable top-10 {scan['topk_lower_10_ms']:.3f} ms (torch.topk 40, unstable: "
+        f"{scan['torch_topk_40_ms']:.3f} ms; full stable sort "
+        f"{scan['stable_sort_ms']:.3f} ms)")
+    return dict(times=times, recall=rec, stats=stats, qps=qps, launches=counts,
+                peak_gib=peak_gb, search_busy=busy, same_top10_plain=same,
+                fs4_vs_f32_max_ratio=ratio, memory_bytes=mem_bytes, scan=scan)
 
 
 def main() -> int:
@@ -479,17 +721,22 @@ def main() -> int:
     n_base = max(int(100_000 * args.scale), 1000)
     t0 = time.perf_counter()
     kernels = parity_and_timing(n_base, 1000)
+    kernels.update(fs4_parity_and_timing(n_base, 1000))
     log(f"[parity] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     small_reference()
     log(f"[small] done in {time.perf_counter() - t0:.1f} s")
-    result = main_path(args)
+    result, ds, gt, graph = main_path(args)
+    t0 = time.perf_counter()
+    fs4 = fs4_path(ds, gt, graph)
+    log(f"[fs4] done in {time.perf_counter() - t0:.1f} s")
     for name, row in kernels.items():
-        row["launches"] = result["launches"][name]
+        row["launches"] = result["launches"][name] + fs4["launches"][name]
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"device": smi, "kernels": kernels, "main": result}, f, indent=1)
+            json.dump({"device": smi, "kernels": kernels, "main": result, "fs4": fs4},
+                      f, indent=1)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -13,6 +13,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.graphs.adjacency import Graph
 from repro_torch.pq.base import QuantizerModel
+from repro_torch.pq.pack import QuantizedLUT
 
 
 def quantizer_from_numpy(r, codebooks, *, device=None) -> QuantizerModel:
@@ -31,9 +32,20 @@ def graph_from_numpy(neighbors, medoid, *, device=None) -> Graph:
 
 
 def codes_from_numpy(codes, *, device=None) -> torch.Tensor:
-    """(N, M) plain codes with values < 256 → uint8 tensor."""
+    """(N, M) plain codes with values < 256, or fs4 (N, ceil(M/2)) packed
+    bytes (``repro.pq.pack.pack_codes``) → uint8 tensor."""
     codes = np.asarray(codes)
     if codes.size and (codes.min() < 0 or codes.max() > 255):
         raise ValueError("codes_from_numpy: plain codes must lie in [0, 256)")
     dev = resolve_device(device)
     return torch.from_numpy(codes.astype(np.uint8)).to(dev)
+
+
+def quantized_lut_from_numpy(lut, scale, bias, *, device=None) -> QuantizedLUT:
+    """A ``repro.pq.pack.QuantizedLUT``'s arrays — (Q, M, 16) uint8 tables,
+    (Q,) scale and bias — → the port's QuantizedLUT."""
+    dev = resolve_device(device)
+    return QuantizedLUT(
+        lut=torch.from_numpy(np.array(lut, dtype=np.uint8)).to(dev),
+        scale=torch.from_numpy(np.array(scale, dtype=np.float32)).to(dev),
+        bias=torch.from_numpy(np.array(bias, dtype=np.float32)).to(dev))

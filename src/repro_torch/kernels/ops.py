@@ -8,8 +8,11 @@ the kernel to the plain version.
 
 Dtype boundary: callers hand in codes and ids in whatever integer dtype
 they store, and THIS module casts once to the canonical kernel dtypes —
-uint8 codes (K ≤ 256), int32 ids, f32 LUTs and sub-vectors. The kernel
-wrappers and the plain versions assume the canonical dtypes.
+uint8 codes (K ≤ 256, or fs4 packed bytes), int32 ids, f32 LUTs and
+sub-vectors, uint8 fs4 LUTs. The kernel wrappers and the plain versions
+assume the canonical dtypes. The fs4 kernels return exact int32 sums; the
+one affine dequant (:func:`_dequant`) stays here, outside both kernels, so
+the float op sequence is the plain version's on every device.
 """
 
 from __future__ import annotations
@@ -17,7 +20,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import adc_scan as _adc
+from repro_torch.kernels import adc_scan_fs as _adcfs
 from repro_torch.kernels import hop_adc as _hop
+from repro_torch.kernels import hop_adc_fs as _hopfs
 from repro_torch.kernels import pq_pairwise as _pqp
 from repro_torch.kernels import ref as _ref
 
@@ -32,7 +37,8 @@ def pad_sentinel_row(x: torch.Tensor) -> torch.Tensor:
 
 
 def _codes_u8(codes: torch.Tensor) -> torch.Tensor:
-    """Canonical plain codes: uint8, contiguous."""
+    """Canonical plain codes, fs4 packed bytes and fs4 LUTs: uint8,
+    contiguous."""
     if codes.dtype != torch.uint8:
         codes = codes.to(torch.uint8)
     return codes.contiguous()
@@ -102,13 +108,55 @@ def adc_scan_batch(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
     return _ref.adc_scan_batch_ref(codes, luts)
 
 
+# the fs4 oracles' own affine undo, applied here for kernel and plain
+# version alike, so the f32 results of both equal the oracles'
+_dequant = _ref.dequant
+
+
+def adc_scan_fs(packed: torch.Tensor, luts_u8: torch.Tensor,
+                scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Batched FAST-SCAN ADC: (N, ceil(M/2)) 4-bit-packed codes ×
+    (Q, M, 16) uint8 LUTs + per-query (Q,) (scale, bias) → (Q, N) f32.
+    Pack codes with ``pq.pack.pack_codes`` and quantize LUTs with
+    ``pq.pack.quantize_luts``."""
+    packed, luts_u8 = _codes_u8(packed), _codes_u8(luts_u8)
+    if packed.is_cuda:
+        acc = _adcfs.adc_scan_fs(packed, luts_u8)
+    else:
+        acc = _ref.adc_scan_fs_acc(packed, luts_u8)
+    return _dequant(acc, scale, bias, luts_u8.shape[1])
+
+
+def hop_adc_fs(packed: torch.Tensor, ids: torch.Tensor, luts_u8: torch.Tensor,
+               scale: torch.Tensor, bias: torch.Tensor, *,
+               m_prefix: int = 0) -> torch.Tensor:
+    """FUSED per-hop FAST-SCAN ADC: (N, ceil(M/2)) packed codes, (Q, R′)
+    ids, (Q, M, 16) uint8 LUTs + (Q,) (scale, bias) → (Q, R′) f32 — the
+    packed twin of :func:`hop_adc`.
+
+    ``0 < m_prefix < M`` sums only the first m_prefix sub-codes and
+    dequantizes with ``m_prefix · bias``; an odd m_prefix is exact on the
+    plain path too (the paired table zero-pads the dangling high nibble)."""
+    packed, ids, luts_u8 = _codes_u8(packed), _ids_i32(ids), _codes_u8(luts_u8)
+    m = luts_u8.shape[1]
+    mp = m_prefix if 0 < m_prefix < m else 0
+    m_eff = mp or m
+    if packed.is_cuda:
+        acc = _hopfs.hop_adc_fs(packed, ids, luts_u8, m_prefix=mp)
+    else:
+        acc = _ref.hop_adc_fs_acc(packed[:, :(m_eff + 1) // 2], ids,
+                                  luts_u8[:, :m_eff])
+    return _dequant(acc, scale, bias, m_eff)
+
+
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
-    for mod in (_pqp, _hop, _adc):
+    for mod in (_pqp, _hop, _adc, _hopfs, _adcfs):
         mod.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`."""
     return {"pq_pairwise": _pqp.launches, "hop_adc": _hop.launches,
-            "adc_scan_batch": _adc.launches}
+            "adc_scan_batch": _adc.launches, "hop_adc_fs": _hopfs.launches,
+            "adc_scan_fs": _adcfs.launches}

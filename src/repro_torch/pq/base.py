@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.device import full_f32_matmul
 from repro_torch.kernels import ops as kops
+from repro_torch.pq.pack import QuantizedLUT, quantize_luts
 
 # Rows per pq_pairwise call in encode: the (rows, M, K) f32 table is 1 GB
 # at M=16, K=256, instead of 16 GB for 1M rows at once.
@@ -75,10 +76,17 @@ def decode(model: QuantizerModel, codes: torch.Tensor) -> torch.Tensor:
     return sub.reshape(codes.shape[0], -1) @ model.r
 
 
-def build_lut(model: QuantizerModel, queries: torch.Tensor) -> torch.Tensor:
-    """(Q, D) → (Q, M, K) per-query ADC lookup tables."""
+def build_lut(model: QuantizerModel, queries: torch.Tensor, *,
+              quantize: bool = False) -> torch.Tensor | QuantizedLUT:
+    """(Q, D) → (Q, M, K) per-query ADC lookup tables.
+
+    ``quantize=True`` returns a :class:`repro_torch.pq.pack.QuantizedLUT`
+    instead — (Q, M, 16) uint8 tables + per-query (scale, bias) — for the
+    fs4 serving layout (K ≤ 16; pair with ``pack.pack_codes(encode(...))``).
+    """
     qs = rotate_split(model, torch.atleast_2d(queries))
-    return kops.pq_pairwise(qs, model.codebooks)
+    luts = kops.pq_pairwise(qs, model.codebooks)
+    return quantize_luts(luts) if quantize else luts
 
 
 def adc(model: QuantizerModel, codes: torch.Tensor,

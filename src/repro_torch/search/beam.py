@@ -14,7 +14,9 @@ lane's own step count.
   ops); bits are set by a scatter-add of distinct, clear bits;
 * distances come from ``dist_fn(qdatas (Q, ...), ids (Q, B)) → (Q, B)``,
   so one round is ONE distance call for the whole batch — with
-  :func:`make_adc_dist_fn`, one ``hop_adc`` kernel launch.
+  :func:`make_adc_dist_fn`, one ``hop_adc`` (fs4: ``hop_adc_fs``) kernel
+  launch. ``qdatas`` is a (Q, ...) tensor or a per-query
+  :class:`~repro_torch.pq.pack.QuantizedLUT`.
 
 ``expand=E`` expands the E best unexpanded entries per round, their E·R
 neighbors deduplicated and scored in one call (DESIGN.md §9); ``expand=1``
@@ -32,6 +34,7 @@ from typing import Callable
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.pq.pack import QuantizedLUT
 
 INF = float("inf")
 
@@ -48,6 +51,9 @@ class SearchResult:
     # (Q,) bool — stopped with unexpanded finite candidates pending
     # (max_steps cut it off): the beam is best-so-far, not converged
     truncated: torch.Tensor
+    # True when the serving layer knows the answer is incomplete (a dead
+    # shard dropped from the merge); False for beams and single engines
+    degraded: bool = False
 
 
 def _bit_get(bits: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -111,8 +117,9 @@ def beam_search(neighbors: torch.Tensor, entry, qdatas: torch.Tensor,
     Args:
       neighbors: (N, R) padded adjacency (sentinel N), int32.
       entry:     shared entry vertex (the PG medoid) or (Q,) per query.
-      qdatas:    (Q, ...) per-query data: LUTs (Q, M, K) for ADC routing or
-                 raw queries (Q, D) for exact routing.
+      qdatas:    (Q, ...) per-query data: LUTs (Q, M, K) or a QuantizedLUT
+                 (fs4) for ADC routing, raw queries (Q, D) for exact
+                 routing.
       dist_fn:   (qdatas, ids (Q, B)) -> (Q, B) f32; B is the frontier
                  width expand·R (1 for the entry).
       h:         beam width (the paper's global candidate set size).
@@ -121,7 +128,7 @@ def beam_search(neighbors: torch.Tensor, entry, qdatas: torch.Tensor,
     """
     n, r = neighbors.shape
     dev = neighbors.device
-    nq = qdatas.shape[0]
+    nq = (qdatas.lut if isinstance(qdatas, QuantizedLUT) else qdatas).shape[0]
     e = max(1, min(expand, h))
     nwords = (n + 31) // 32 + 1
     entries = _normalize_entries(entry, nq, dev)
@@ -201,15 +208,26 @@ def make_exact_dist_fn(vectors: torch.Tensor) -> Callable:
     return dist_fn
 
 
-def make_adc_dist_fn(codes: torch.Tensor, *, m_prefix: int = 0) -> Callable:
+def make_adc_dist_fn(codes: torch.Tensor, *, packed: bool = False,
+                     m_prefix: int = 0) -> Callable:
     """qdatas = LUTs (Q, M, K); codes must be (N+1, M) sentinel-padded
     uint8. Each call is one fused ``hop_adc`` over the batch's frontier —
     the kernel on the card, its plain version on the CPU.
+
+    ``packed=True`` is the fs4 layout: qdatas is a per-query
+    :class:`~repro_torch.pq.pack.QuantizedLUT` and codes are (N+1,
+    ceil(M/2)) packed bytes; each call is one ``hop_adc_fs``.
 
     ``m_prefix > 0`` makes a PARTIAL-LUT distance over only the first
     ``m_prefix`` subspaces (a lower bound on the full one; the hop-pruning
     ``lb_dist_fn`` of a later slice). ``m_prefix=0`` is the full distance.
     """
+    if packed:
+        def dist_fn(qlut, ids):
+            return kops.hop_adc_fs(codes, ids, qlut.lut, qlut.scale, qlut.bias,
+                                   m_prefix=m_prefix)
+        return dist_fn
+
     def dist_fn(luts, ids):
         return kops.hop_adc(codes, ids, luts, m_prefix=m_prefix)
     return dist_fn

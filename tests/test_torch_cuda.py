@@ -16,8 +16,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import adc_scan_fs as kadcfs
+from repro_torch.kernels import hop_adc_fs as khopfs
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
+from repro_torch.pq import pack
 
 pytestmark = pytest.mark.cuda
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -83,3 +86,67 @@ def test_pq_pairwise_kernel_matches_plain(dev, dsub):
     cb = torch.randn((16, 256, dsub), generator=g, device=dev)
     torch.testing.assert_close(ops.pq_pairwise(x, cb), ref.pq_pairwise_ref(x, cb),
                                rtol=1e-5, atol=1e-4)
+
+
+def _fs_inputs(dev, n, m, q, seed=11):
+    """Packed codes with a zero sentinel row at n and u8 LUTs on the card."""
+    rng = np.random.default_rng(seed)
+    codes = torch.from_numpy(rng.integers(0, 16, (n + 1, m)).astype(np.uint8))
+    codes[n] = 0
+    luts = torch.from_numpy(rng.integers(0, 256, (q, m, 16)).astype(np.uint8))
+    return pack.pack_codes(codes).to(dev), luts.to(dev), rng
+
+
+@pytest.mark.parametrize("r", [1, 64, 200, 256])
+@pytest.mark.parametrize("m,m_prefix", [(16, 0), (16, 5), (7, 0), (7, 3)])
+def test_hop_adc_fs_kernel_matches_plain(dev, r, m, m_prefix):
+    """int32 sums equal bit for bit: odd M, odd m_prefix, duplicates, row 0
+    and the sentinel row, Q = 37."""
+    n, q = 5003, 37
+    packed, luts, rng = _fs_inputs(dev, n, m, q, seed=r + m + m_prefix)
+    ids = rng.integers(0, n + 1, (q, r)).astype(np.int32)
+    if r > 1:
+        ids[:, : r // 4] = ids[:, r // 4: 2 * (r // 4)]
+        ids[0, 0], ids[0, -1] = 0, n
+    ids = torch.from_numpy(ids).to(dev)
+    got = khopfs.hop_adc_fs(packed, ids, luts, m_prefix=m_prefix)
+    mp = m_prefix or m
+    want = ref.hop_adc_fs_acc(packed[:, :(mp + 1) // 2].contiguous(), ids, luts[:, :mp])
+    assert got.dtype == torch.int32
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n,m,q", [(4099, 16, 13), (10007, 7, 8), (3001, 9, 1),
+                                   (20000, 32, 21)])
+def test_adc_scan_fs_kernel_matches_plain(dev, n, m, q):
+    """int32 sums equal bit for bit: ragged N, odd M, a byte width that is
+    not a multiple of 4 (M=9), Q off the 8-query tile."""
+    packed, luts, _ = _fs_inputs(dev, n - 1, m, q, seed=n)
+    got = kadcfs.adc_scan_fs(packed, luts)
+    assert got.dtype == torch.int32 and got.shape == (q, n)
+    torch.testing.assert_close(got, ref.adc_scan_fs_acc(packed, luts), rtol=0, atol=0)
+
+
+def test_adc_scan_fs_kernel_unaligned_rows(dev):
+    """Packed rows that start at an odd address take the byte-load path of
+    the kernel and still agree."""
+    packed, luts, _ = _fs_inputs(dev, 999, 8, 5)
+    flat = torch.empty(packed.numel() + 1, dtype=torch.uint8, device=dev)
+    flat[1:] = packed.reshape(-1)
+    view = flat[1:].view(packed.shape)
+    assert view.data_ptr() % 4 and view.is_contiguous()
+    got = kadcfs.adc_scan_fs(view, luts)
+    torch.testing.assert_close(got, ref.adc_scan_fs_acc(view, luts), rtol=0, atol=0)
+
+
+def test_fs_ops_dequantize_like_plain(dev):
+    packed, luts, rng = _fs_inputs(dev, 2000, 16, 9)
+    scale = torch.rand(9, device=dev) + 0.1
+    bias = torch.rand(9, device=dev)
+    ids = torch.from_numpy(rng.integers(0, 2001, (9, 64)).astype(np.int32)).to(dev)
+    torch.testing.assert_close(ops.hop_adc_fs(packed, ids, luts, scale, bias),
+                               ref.hop_adc_fs_ref(packed, ids, luts, scale, bias),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(ops.adc_scan_fs(packed, luts, scale, bias),
+                               ref.adc_scan_fs_ref(packed, luts, scale, bias),
+                               rtol=0, atol=0)

@@ -12,7 +12,9 @@ import jax.numpy as jnp
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import adc_scan as t_adc
+from repro_torch.kernels import adc_scan_fs as t_adcfs
 from repro_torch.kernels import hop_adc as t_hop
+from repro_torch.kernels import hop_adc_fs as t_hopfs
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import pq_pairwise as t_pqp
 from repro_torch.kernels import ref as tref
@@ -133,6 +135,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         t_pqp.pq_pairwise(T(luts[:, :, :4].copy()), T(luts[0][:, :, None].copy()))
 
 
+def test_fs_kernel_wrappers_refuse_cpu_tensors():
+    packed = torch.zeros((21, 4), dtype=torch.uint8)
+    luts = torch.zeros((2, 8, 16), dtype=torch.uint8)
+    ids = torch.zeros((2, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        t_hopfs.hop_adc_fs(packed, ids, luts)
+    with pytest.raises(ValueError, match="CUDA"):
+        t_adcfs.adc_scan_fs(packed, luts)
+
+
 def test_ops_reject_codes_beyond_uint8():
     with pytest.raises(ValueError, match="K=256"):
         tops.adc_scan_batch(torch.zeros((4, 2), dtype=torch.int32),
@@ -145,5 +157,11 @@ def test_launch_counts_reset_and_cpu_path_launches_nothing():
     codes, ids, luts = _hop_inputs(rng, n=20, m=4, k=16, q=2, r=8)
     tops.hop_adc(T(codes), T(ids), T(luts))
     tops.adc_scan_batch(T(codes), T(luts))
+    packed = torch.zeros((21, 2), dtype=torch.uint8)
+    luts_u8 = torch.ones((2, 4, 16), dtype=torch.uint8)
+    scale, bias = torch.ones(2), torch.zeros(2)
+    tops.hop_adc_fs(packed, T(ids), luts_u8, scale, bias)
+    tops.adc_scan_fs(packed, luts_u8, scale, bias)
     assert tops.launch_counts() == {"pq_pairwise": 0, "hop_adc": 0,
-                                    "adc_scan_batch": 0}
+                                    "adc_scan_batch": 0, "hop_adc_fs": 0,
+                                    "adc_scan_fs": 0}

@@ -11,13 +11,18 @@ import jax.numpy as jnp
 from repro.data import load_dataset as j_load
 from repro.pq import base as jbase
 from repro.pq.kmeans import kmeans_multi as j_kmeans_multi
+from repro.pq import pq as jpq
 from repro.pq.pq import train_pq as j_train_pq
+from repro.pq.pq import train_pq_fs4 as j_train_pq_fs4
 from repro_torch import convert
 from repro_torch.data import SPECS, load_dataset as t_load
 from repro_torch.pq import base as tbase
 from repro_torch.pq.kmeans import kmeans as t_kmeans
 from repro_torch.pq.kmeans import kmeans_multi as t_kmeans_multi
+from repro_torch.pq import pq as tpq
+from repro_torch.pq.pack import QuantizedLUT
 from repro_torch.pq.pq import train_pq as t_train_pq
+from repro_torch.pq.pq import train_pq_fs4 as t_train_pq_fs4
 
 
 def T(a):
@@ -139,3 +144,49 @@ def test_train_pq_on_cpu_is_a_working_quantizer(ds):
                                 .contiguous())
     assert float(tbase.distortion(model, tds.base)) < float(
         tbase.distortion(init, tds.base))
+
+
+def test_train_pq_fs4_injected_init_matches_jax(monkeypatch):
+    """train_pq_fs4 is train_pq at K=16: from the same injected k-means
+    init both packages reach the same codebooks (well-separated clusters,
+    so near-tie flips between the two summation orders move no point;
+    rtol 1e-4 covers segment_sum vs index_add_)."""
+    rng = np.random.default_rng(21)
+    m, dsub, n = 4, 2, 800
+    centers = rng.normal(size=(m, 16, dsub)).astype(np.float32) * 6.0
+    labels = rng.integers(0, 16, (n, m))
+    x = (centers[np.arange(m)[None, :], labels].reshape(n, m * dsub)
+         + 0.3 * rng.normal(size=(n, m * dsub))).astype(np.float32)
+    init = x[rng.permutation(n)[:16]].reshape(16, m, dsub).transpose(1, 0, 2).copy()
+    j_km, t_km = jpq.kmeans_multi, tpq.kmeans_multi
+    monkeypatch.setattr(jpq, "kmeans_multi", lambda key, xr, k, iters: j_km(
+        key, xr, k, iters=iters, init=jnp.asarray(init)))
+    monkeypatch.setattr(tpq, "kmeans_multi", lambda xr, k, generator, iters: t_km(
+        xr, k, iters=iters, init=T(init)))
+    want = j_train_pq_fs4(jax.random.PRNGKey(0), jnp.asarray(x), m, iters=6)
+    got = t_train_pq_fs4(T(x), m, generator=torch.Generator().manual_seed(0),
+                         iters=6, device="cpu")
+    assert got.k == 16 and got.codebooks.shape == (m, 16, dsub)
+    np.testing.assert_allclose(got.codebooks.numpy(), np.asarray(want.codebooks),
+                               rtol=1e-4, atol=1e-5)
+    codes = tbase.encode(got, T(x))
+    assert int(codes.max()) < 16
+
+
+def test_build_lut_quantized_matches_jax(ds):
+    """build_lut(quantize=True): the f32 tables agree at rtol 1e-5 (another
+    reduction order), so the quantized bytes agree within one step and the
+    affine within the same rtol; fed JAX's own f32 tables, quantize_luts is
+    bit-exact (tests/test_torch_fastscan.py)."""
+    jds, tds = ds
+    jm = j_train_pq_fs4(jax.random.PRNGKey(2), jds.train, 8, iters=4)
+    tm = convert.quantizer_from_numpy(np.asarray(jm.r), np.asarray(jm.codebooks),
+                                      device="cpu")
+    want = jbase.build_lut(jm, jds.queries, quantize=True)
+    got = tbase.build_lut(tm, tds.queries, quantize=True)
+    assert isinstance(got, QuantizedLUT) and got.lut.dtype == torch.uint8
+    diff = np.abs(got.lut.numpy().astype(np.int32) - np.asarray(want.lut).astype(np.int32))
+    assert diff.max() <= 1 and diff.mean() < 0.01
+    np.testing.assert_allclose(got.scale.numpy(), np.asarray(want.scale), rtol=1e-5)
+    np.testing.assert_allclose(got.bias.numpy(), np.asarray(want.bias), rtol=1e-5,
+                               atol=1e-4)

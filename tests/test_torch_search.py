@@ -19,6 +19,7 @@ from repro.data import load_dataset as j_load
 from repro.graphs import build_vamana as j_build_vamana
 from repro.graphs.knn import knn_ids as j_knn_ids
 from repro.pq import base as jbase
+from repro.pq import pack as jpack
 from repro.pq.pq import train_pq as j_train_pq
 from repro.search import beam as jbeam
 from repro.search.engine import HybridEngine as JHybrid
@@ -29,6 +30,7 @@ from repro_torch.data import load_dataset as t_load
 from repro_torch.graphs.vamana import build_vamana as t_build_vamana
 from repro_torch.kernels import ops as tops
 from repro_torch.pq import base as tbase
+from repro_torch.pq.pack import QuantizedLUT
 from repro_torch.pq.pq import train_pq as t_train_pq
 from repro_torch.search import beam as tbeam
 from repro_torch.search.engine import HybridEngine, InMemoryEngine
@@ -161,6 +163,75 @@ def test_adc_m_prefix_dist_fn_vs_jax(setup):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
 
 
+def _tie_free_fs4(seed):
+    """M=2 fs4 codes, one distinct packed byte per vertex, and per-query
+    LUTs ``lut[q, 0, c] = p(c)``, ``lut[q, 1, c] = 16·p'(c)`` for two
+    permutations of 0..15: the int32 sum p(c0) + 16·p'(c1) is injective
+    over the (c0, c1) pairs, so no two vertices tie in any query."""
+    r = np.random.default_rng(seed)
+    byte = r.permutation(256)[:N].astype(np.uint8)
+    packed_p = np.concatenate([byte, [0]]).astype(np.uint8)[:, None]  # (N+1, 1)
+    lut = np.stack([np.stack([r.permutation(16), 16 * r.permutation(16)])
+                    for _ in range(Q)]).astype(np.uint8)             # (Q, 2, 16)
+    scale = r.uniform(0.1, 2.0, Q).astype(np.float32)
+    bias = r.uniform(0.0, 1.0, Q).astype(np.float32)
+    return packed_p, (lut, scale, bias)
+
+
+def _fs4_beams(setup, packed_p, ql, **kw):
+    jql = jpack.QuantizedLUT(*(jnp.asarray(a) for a in ql))
+    tql = QuantizedLUT(*(T(a) for a in ql))
+    j_res = jbeam.beam_search(setup["jgraph"].neighbors, setup["jgraph"].medoid, jql,
+                              jbeam.make_adc_dist_fn(jnp.asarray(packed_p),
+                                                     packed=True), **kw)
+    t_res = tbeam.beam_search(setup["tgraph"].neighbors, setup["tgraph"].medoid, tql,
+                              tbeam.make_adc_dist_fn(T(packed_p), packed=True), **kw)
+    return t_res, j_res
+
+
+@pytest.mark.parametrize("expand", [1, 4])
+@pytest.mark.parametrize("h", [16, 48])
+def test_beam_search_fs4_tie_free_vs_jax(setup, expand, h):
+    packed_p, ql = _tie_free_fs4(h + expand)
+    t_res, j_res = _fs4_beams(setup, packed_p, ql, h=h, expand=expand)
+    _assert_same_result(t_res, j_res)
+
+
+@pytest.mark.parametrize("expand", [1, 4])
+def test_beam_search_fs4_natural_ties_vs_jax(setup, expand):
+    """Quantized LUTs of a real model over its own (non-unique) codes tie
+    often; equal int32 sums dequantize to equal distances on both sides
+    and both break ties toward the lower index, so the ids and counters
+    still match JAX's."""
+    jmodel = setup["jmodel"]
+    codes = np.asarray(jbase.encode(jmodel, setup["jx"]))
+    packed_p = np.asarray(jpack.pack_codes(jnp.asarray(
+        np.concatenate([codes, np.zeros((1, M), codes.dtype)]))))
+    jql = jbase.build_lut(jmodel, setup["jq"], quantize=True)
+    ql = tuple(np.asarray(a) for a in jql)
+    t_res, j_res = _fs4_beams(setup, packed_p, ql, h=32, expand=expand)
+    _assert_same_result(t_res, j_res)
+    d = t_res.dists.numpy()
+    assert (d[:, 1:] == d[:, :-1]).any()          # the fixture does tie
+
+
+def test_adc_fs_m_prefix_dist_fn_vs_jax(setup):
+    packed_p, ql = _tie_free_fs4(3)
+    ids = np.random.default_rng(1).integers(0, N + 1, (Q, 24)).astype(np.int32)
+    jfn = jbeam.make_adc_dist_fn(jnp.asarray(packed_p), packed=True, m_prefix=1)
+    want = jax.vmap(jfn)(jpack.QuantizedLUT(*(jnp.asarray(a) for a in ql)),
+                         jnp.asarray(ids))
+    got = tbeam.make_adc_dist_fn(T(packed_p), packed=True, m_prefix=1)(
+        QuantizedLUT(*(T(a) for a in ql)), T(ids))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+
+
+def test_beam_and_engine_results_are_not_degraded(setup):
+    packed_p, ql = _tie_free_fs4(4)
+    t_res, _ = _fs4_beams(setup, packed_p, ql, h=16)
+    assert t_res.degraded is False
+
+
 def test_engines_vs_jax(setup):
     jlut = lambda qq: jbase.build_lut(setup["jmodel"], qq)
     tlut = lambda qq: tbase.build_lut(setup["tmodel"], qq)
@@ -263,7 +334,8 @@ def test_import_repro_torch_loads_no_jax():
     import jax at startup): importing the whole port pulls in no jax."""
     code = ("import sys; sys.path.insert(0, 'src'); import repro_torch, "
             "repro_torch.convert, repro_torch.search.engine, "
-            "repro_torch.graphs.vamana, repro_torch.pq, repro_torch.data; "
+            "repro_torch.graphs.vamana, repro_torch.pq, repro_torch.pq.pack, "
+            "repro_torch.dist.fault, repro_torch.data; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
