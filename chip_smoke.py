@@ -8,15 +8,19 @@
 Phases, each of which ends the run with a non-zero exit when it fails:
 
 1. device: the card's ``nvidia-smi`` name and power limit, torch's name;
-2. build: the five CUDA kernels from ``src/repro_torch/kernels/csrc``, one
-   ``nvcc`` per source, all at once;
+2. build: the seven CUDA kernels from ``src/repro_torch/kernels/csrc`` (six
+   sources), one ``nvcc`` per source, all at once;
 3. parity: each kernel against its plain PyTorch version on CUDA tensors, at
    the main path's shapes and at edge shapes (the fs4 kernels ``hop_adc_fs``
-   and ``adc_scan_fs`` exactly, on their int32 sums), then CUDA-event times
-   of the kernel, the plain version and, where one PyTorch call computes the
-   same function, that call (``hop_adc`` and ``hop_adc_fs``, shorter than
-   their Python launch, are timed by replaying a captured CUDA graph of many
-   launches; the fs4 dequant pass is timed beside ``adc_scan_fs``);
+   and ``adc_scan_fs`` exactly, on their int32 sums; ``adc_scan`` and
+   ``hop_gather`` also against ``adc_scan_batch`` and ``hop_adc``), the
+   ``pq_pairwise`` gradient against autograd of its plain version, then
+   CUDA-event times of the kernel, the plain version and, where one PyTorch
+   call computes the same function, that call (``hop_adc``, ``hop_adc_fs``,
+   ``hop_gather`` and ``adc_scan``, shorter than their Python launch, are
+   timed by replaying a captured CUDA graph of many launches; the fs4
+   dequant pass is timed beside ``adc_scan_fs``, the PyTorch backward of
+   ``pq_pairwise`` at the default training step's shape);
 4. small reference: the unit-test dataset served on the card and on the CPU
    (the plain versions) from the same graph and quantizer must agree;
 5. u8 path at full width: ``load_dataset("sift", scale=10)``, ``knn_ids``
@@ -32,10 +36,25 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    traced fs4 search, launch counts read around this phase alone; then the
    checks (kernel- vs plain-routed top-10, fs4 vs f32 ADC within M·scale,
    fs4 memory below u8) and the times of the scan engine's dequant and
-   top-k at 1000 x 1M.
+   top-k at 1000 x 1M;
+7. gather: phase 5's search with every round scored by ``ops.hop_gather``
+   on rows gathered in PyTorch; ids, distances and counters must equal the
+   ``hop_adc``-routed search;
+8. train: ``core.trainer.fit`` with the reference's ``TrainConfig``
+   defaults (1000 steps, batches of 512, a routing refresh every 100 steps)
+   on phase 5's base and graph, from its PQ codebooks at R = I; step and
+   refresh times, the busy share of 20 traced steps, peak memory, one step
+   at the ``quant_train`` shape (8192 triplets, 4096 routing examples),
+   finite losses and an orthonormal R; then the RPQ codes served by
+   ``InMemoryEngine`` / ``HybridEngine`` beside phase 5's PQ, and both
+   quantizers' reconstruction MSE;
+9. retrieval: ``models.recsys.score_candidates_adc`` for 100 single queries
+   over the 1M RPQ codes, its top-100 against the plain scan's, and its
+   time per query beside ``score_candidates_exact``.
 
+Phases 5–9 each read every kernel's launch count around their own run.
 The last three lines are the kernels JSON (each kernel's ``launches`` summed
-over the two paths' counted runs), the ``nvidia-smi`` line, and
+over those counted runs), the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without CUDA, or run outside the repository, it exits non-zero and prints no
 result. It imports nothing of JAX and nothing of the JAX package.
@@ -398,6 +417,132 @@ def fs4_parity_and_timing(n_base: int, n_query: int) -> dict:
     return {row["name"]: row for row in rows}
 
 
+def scorer_parity_and_timing(n_base: int, n_query: int) -> tuple[dict, dict]:
+    """Phase 3 for ``adc_scan`` and ``hop_gather`` (rtol 1e-6 against their
+    plain versions, and against ``adc_scan_batch`` / ``hop_adc``, which sum
+    in the same order) and for the ``pq_pairwise`` gradient (the autograd
+    Function, kernel forward, against autograd of the plain version, rtol
+    1e-5). Returns the two kernel rows and the backward's times."""
+    import torch
+
+    from repro_torch.kernels import adc_scan as kadc
+    from repro_torch.kernels import hop_gather as khopg
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2468)
+    m, k, dsub = 16, 256, 8
+    errs = {"adc_scan": 0.0, "hop_gather": 0.0}
+
+    def note(kernel, e):
+        errs[kernel] = max(errs[kernel], e)
+
+    def rand_codes(shape, kk=k):
+        return torch.randint(0, kk, shape, generator=g, device=dev,
+                             dtype=torch.int32).to(torch.uint8)
+
+    def rand_lut(shape):  # non-negative, like squared distances
+        return torch.rand(shape, generator=g, device=dev) * 20.0
+
+    # adc_scan: the retrieval scorer's 1 x N_base; ragged N, odd M (byte
+    # loads), K < 256, a single row; each also as a row of adc_scan_batch
+    codes_full = rand_codes((n_base, m))
+    lut_full = rand_lut((m, k))
+    for codes, lut in ((codes_full, lut_full), (rand_codes((4099, m)), rand_lut((m, k))),
+                       (rand_codes((3001, 7)), rand_lut((7, k))),
+                       (rand_codes((777, m), 16), rand_lut((m, 16))),
+                       (rand_codes((1, m)), rand_lut((m, k)))):
+        name = f"adc_scan N={codes.shape[0]} M={codes.shape[1]} K={lut.shape[1]}"
+        got = ops.adc_scan(codes, lut)
+        note("adc_scan", compare(name, got, ref.adc_scan_ref(codes, lut),
+                                 rtol=1e-6, atol=1e-6))
+        compare(f"{name} vs adc_scan_batch row", got,
+                ops.adc_scan_batch(codes, lut[None])[0], rtol=1e-6, atol=1e-6)
+
+    # hop_gather: one beam round's (Q, R=64) pre-gathered rows; odd M,
+    # K < 256, Q = 1, R = 1; each also against hop_adc on the same ids
+    codes_p = ops.pad_sentinel_row(rand_codes((n_base, m)))
+    cases = []
+    for q, r, mm, kk in ((n_query, 64, m, k), (37, 200, 7, k), (1, 64, m, 16),
+                         (5, 1, m, k)):
+        cp = codes_p if mm == m and kk == k else ops.pad_sentinel_row(
+            rand_codes((5003, mm), kk))
+        ids = torch.randint(0, cp.shape[0], (q, r), generator=g, device=dev,
+                            dtype=torch.int32)
+        cases.append((cp, ids, rand_lut((q, mm, kk))))
+    for cp, ids, luts in cases:
+        name = (f"hop_gather Q={ids.shape[0]} R={ids.shape[1]} M={cp.shape[1]} "
+                f"K={luts.shape[2]}")
+        rows = cp[ids.long()]
+        got = ops.hop_gather(rows, luts)
+        note("hop_gather", compare(name, got, ref.hop_gather_ref(rows, luts),
+                                   rtol=1e-6, atol=1e-6))
+        compare(f"{name} vs hop_adc on the same ids", got, ops.hop_adc(cp, ids, luts),
+                rtol=0.0, atol=0.0)
+
+    # pq_pairwise gradient at the default training step's shape: 512·3
+    # triplet rows + 512·16 routing candidates
+    n_step = 512 * 3 + 512 * 16
+    x = torch.randn((n_step, m, dsub), generator=g, device=dev) * 3.0
+    cb = torch.randn((m, k, dsub), generator=g, device=dev) * 3.0
+    up = torch.randn((n_step, m, k), generator=g, device=dev)
+    x1, c1 = x.clone().requires_grad_(), cb.clone().requires_grad_()
+    x2, c2 = x.clone().requires_grad_(), cb.clone().requires_grad_()
+    ops.pq_pairwise(x1, c1).backward(up)
+    ref.pq_pairwise_ref(x2, c2).backward(up)
+    grad_err = max(compare(f"pq_pairwise d/dx N={n_step}", x1.grad, x2.grad,
+                           rtol=1e-5, atol=1e-3),
+                   compare(f"pq_pairwise d/dcodebooks N={n_step}", c1.grad, c2.grad,
+                           rtol=1e-5, atol=1e-2))
+
+    def plain_backward():
+        x2.grad = c2.grad = None
+        ref.pq_pairwise_ref(x2, c2).backward(up)
+
+    backward = dict(shape=f"({n_step},{m},{dsub})x({m},{k},{dsub}) default train step",
+                    max_abs_err=grad_err,
+                    ms=cuda_ms(lambda: ops.pq_pairwise_backward(x, cb, up), iters=20),
+                    plain_autograd_ms=cuda_ms(plain_backward, iters=10))
+    log(f"[time] pq_pairwise backward {backward['shape']}: PyTorch products "
+        f"{backward['ms']:.4f} ms, autograd of the plain version "
+        f"{backward['plain_autograd_ms']:.4f} ms (no bound: not a kernel)")
+
+    # ---- times at the main path's shapes (kernel: CUDA-graph replay) ----
+    rows = []
+    sout = torch.empty((n_base,), device=dev)
+    b_ms, b_by = bound(codes_full.numel() + 4 * lut_full.numel() + 4 * sout.numel(),
+                       codes_full.numel())
+    rows.append(dict(
+        name="adc_scan", route="cuda", source="src/repro_torch/kernels/csrc/adc_scan.cu",
+        replaces="src/repro/kernels/adc_scan.py:74",
+        shape=f"codes ({n_base},{m}) u8 x lut ({m},{k}), one query",
+        max_abs_err=errs["adc_scan"],
+        ms=graph_ms(lambda: kadc.launch_query(codes_full, lut_full, sout), iters=100),
+        plain_ms=cuda_ms(lambda: ref.adc_scan_ref(codes_full, lut_full), iters=10),
+        issue_ms=cuda_ms(lambda: kadc.launch_query(codes_full, lut_full, sout), iters=100),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, library_call=None))
+
+    _, ids, luts = cases[0]
+    rows_g = codes_p[ids.long()]
+    gout = torch.empty(ids.shape, device=dev)
+    b_ms, b_by = bound(rows_g.numel() + 4 * luts.numel() + 4 * gout.numel(), rows_g.numel())
+    rows.append(dict(
+        name="hop_gather", route="cuda", source="src/repro_torch/kernels/csrc/hop_gather.cu",
+        replaces="src/repro/kernels/hop_gather.py:55",
+        shape=f"codes ({n_query},64,{m}) u8 x luts ({n_query},{m},{k}), one beam round",
+        max_abs_err=errs["hop_gather"],
+        ms=graph_ms(lambda: khopg.launch(rows_g, luts, gout), iters=200),
+        plain_ms=graph_ms(lambda: ref.hop_gather_ref(rows_g, luts), iters=50),
+        issue_ms=cuda_ms(lambda: khopg.launch(rows_g, luts, gout), iters=200),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, library_call=None))
+    for row in rows:
+        log(f"[time] {row['name']} {row['shape']}: kernel {row['ms']:.4f} ms (back-to-back "
+            f"launches from the host: {row['issue_ms']:.4f} ms), plain "
+            f"{row['plain_ms']:.4f} ms, library {row['library_ms']}, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return {row["name"]: row for row in rows}, backward
+
+
 # --------------------------------------------------------------------------
 # phase 4: the slice on a small input, card vs CPU
 # --------------------------------------------------------------------------
@@ -443,16 +588,13 @@ def small_reference() -> None:
 # phase 5: the main path at full width
 # --------------------------------------------------------------------------
 
-def device_busy(fn, wall_s: float, label: str = "InMemoryEngine") -> dict:
-    """Device time of one traced ``fn()`` by kernel name (torch.profiler),
-    and its share of ``wall_s``, the untraced wall time of the same call.
-    Kernels run on one stream, so their summed time is the busy time."""
+def kernel_times(prof, tag: str, label: str, wall_ms: float) -> dict:
+    """Device time by kernel name in a finished ``torch.profiler`` trace,
+    its share of ``wall_ms`` (the untraced wall time of the same work) and
+    the six largest kernels, logged as ``[tag]`` lines. Kernels run on one
+    stream, so their summed time is the busy time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     per_kernel = {}
     for ev in prof.key_averages():
         if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0:
@@ -460,19 +602,29 @@ def device_busy(fn, wall_s: float, label: str = "InMemoryEngine") -> dict:
     device_ms = sum(ms for ms, _ in per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:6]
     if device_ms == 0:
-        log(f"[trace] {label} search: the profiler saw no device time (not measured)")
-        return {"device_ms": None, "wall_ms": wall_s * 1e3, "busy_share": None}
-    log(f"[trace] one {label} search: device busy {device_ms:.2f} ms of "
-        f"{wall_s * 1e3:.2f} ms untraced wall ({device_ms / (wall_s * 1e3):.3f}); "
-        f"{sum(n for _, n in per_kernel.values())} kernels")
+        log(f"[{tag}] {label}: the profiler saw no device time (not measured)")
+        return {"device_ms": None, "wall_ms": wall_ms, "busy_share": None}
+    log(f"[{tag}] {label}: device busy {device_ms:.2f} ms of {wall_ms:.2f} ms untraced "
+        f"wall ({device_ms / wall_ms:.3f}); {sum(n for _, n in per_kernel.values())} kernels")
     for name, (ms, n) in top:
-        log(f"[trace]   {ms:8.3f} ms  x{n:<5d} {name[:90]}")
-    return {"device_ms": device_ms, "wall_ms": wall_s * 1e3,
-            "busy_share": device_ms / (wall_s * 1e3),
+        log(f"[{tag}]   {ms:8.3f} ms  x{n:<5d} {name[:90]}")
+    return {"device_ms": device_ms, "wall_ms": wall_ms, "busy_share": device_ms / wall_ms,
             "top": [(name[:90], ms, n) for name, (ms, n) in top]}
 
 
-def main_path(args) -> tuple[dict, object, object, object]:
+def device_busy(fn, wall_s: float, label: str = "InMemoryEngine") -> dict:
+    """Device time of one traced ``fn()`` by kernel name (torch.profiler),
+    and its share of ``wall_s``, the untraced wall time of the same call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return kernel_times(prof, "trace", f"one {label} search", wall_s * 1e3)
+
+
+def main_path(args) -> tuple:
     import torch
 
     from repro_torch.data import load_dataset
@@ -561,7 +713,7 @@ def main_path(args) -> tuple[dict, object, object, object]:
                 "hybrid": qps_h}, launches=counts, peak_gib=peak_gb, search_busy=busy,
                 same_top10_plain=same, mean_degree=deg, graph_exact_recall=graph_rec,
                 vamana_batch=args.vamana_batch,
-                n_base=int(ds.base.shape[0])), ds, gt, graph
+                n_base=int(ds.base.shape[0])), ds, gt, graph, model, codes
 
 
 # --------------------------------------------------------------------------
@@ -680,6 +832,240 @@ def fs4_path(ds, gt, graph) -> dict:
                 fs4_vs_f32_max_ratio=ratio, memory_bytes=mem_bytes, scan=scan)
 
 
+# --------------------------------------------------------------------------
+# phase 7: beam search routed through ops.hop_gather (the pre-fusion round)
+# --------------------------------------------------------------------------
+
+def gather_path(ds, graph, model, codes) -> dict:
+    """The u8 search of phase 5 with every round scored by ``ops.hop_gather``
+    on rows gathered in PyTorch, the reference's ``ops.hop_gather`` path. It
+    must return the hop_adc-routed ids and counters exactly (both kernels
+    sum in j order), and on one round's frontier ``hop_gather(codes[ids],
+    luts)`` must equal ``hop_adc(codes, ids, luts)``."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.pq import base
+    from repro_torch.search import beam
+
+    codes_p = ops.pad_sentinel_row(codes)
+    frontier = {}
+
+    def gather_fn(luts, ids):
+        if "ids" not in frontier and ids.shape[1] > 1:
+            frontier["ids"] = ids.clone()
+        return ops.hop_gather(codes_p[ids], luts)
+
+    times: dict[str, float] = {}
+    ops.reset_launch_counts()
+    luts = base.build_lut(model, ds.queries)
+    res_g = timed(times, "gather", "search_hop_gather", lambda: beam.beam_search(
+        graph.neighbors, graph.medoid, luts, gather_fn, h=32, max_steps=512))
+    counts = ops.launch_counts()
+    log(f"[gather] launches: {counts}")
+    check(counts["hop_gather"] > 0, "kernel hop_gather was not launched on its path")
+
+    res_a = timed(times, "gather", "search_hop_adc", lambda: beam.beam_search(
+        graph.neighbors, graph.medoid, luts, beam.make_adc_dist_fn(codes_p), h=32,
+        max_steps=512))
+    same = {name: bool(torch.equal(getattr(res_g, name), getattr(res_a, name)))
+            for name in ("ids", "dists", "hops", "n_dist", "rounds")}
+    ids = frontier["ids"]
+    round_equal = bool(torch.equal(ops.hop_gather(codes_p[ids], luts),
+                                   ops.hop_adc(codes_p, ids, luts)))
+    log(f"[gather] hop_gather-routed vs hop_adc-routed search (1000 queries, h=32): "
+        f"equal {same}; one round's frontier ({tuple(ids.shape)}) equal {round_equal}")
+    check(all(same.values()), "hop_gather-routed search differs from hop_adc-routed")
+    check(round_equal, "hop_gather(codes[ids]) differs from hop_adc(codes, ids)")
+    return dict(times=times, launches=counts, same=same, round_equal=round_equal)
+
+
+# --------------------------------------------------------------------------
+# phase 8: RPQ training at full width, then serving its codes
+# --------------------------------------------------------------------------
+
+TRACE_FROM_STEP = 301  # the 20 traced steps hold no routing refresh
+TRACE_STEPS = 20
+
+
+def train_path(ds, gt, graph, pq_model, pq_main: dict) -> tuple[dict, object, object, object]:
+    """``fit`` with the reference's TrainConfig defaults on the 1M base and
+    its R=64 graph, from the u8 phase's PQ codebooks at R = I; step and
+    refresh times, the busy share of 20 traced steps, one step at the
+    ``quant_train`` shape; then the RPQ codes served beside PQ."""
+    import dataclasses
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.common import adam, one_cycle
+    from repro_torch.core import features as F
+    from repro_torch.core import quantizer as Q
+    from repro_torch.core import trainer as T
+    from repro_torch.kernels import ops
+    from repro_torch.pq import base
+    from repro_torch.search.engine import HybridEngine, InMemoryEngine
+    from repro_torch.search.metrics import measure_qps, recall_at_k
+
+    dev = ds.base.device
+    cfg = Q.RPQConfig(dim=ds.base.shape[1], m=16, k=256)
+    tcfg = T.TrainConfig()
+    params0 = Q.init_params(cfg, pq_model.codebooks)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    marks = {}
+
+    def on_step(step, params, opt_state):
+        torch.cuda.synchronize()
+        marks[step] = time.perf_counter()
+        if step == TRACE_FROM_STEP - 1:
+            prof.start()
+        elif step == TRACE_FROM_STEP + TRACE_STEPS - 1:
+            prof.stop()
+
+    torch.cuda.synchronize()
+    marks[-1] = t0 = time.perf_counter()
+    state = T.fit(cfg, tcfg, ds.base, graph, seed=0, params=params0,
+                  checkpoint_cb=on_step, verbose=True, device=dev)
+    fit_s = time.perf_counter() - t0
+    peak_fit = torch.cuda.max_memory_allocated() / 2**30
+    dt = {s: (marks[s] - marks[s - 1]) * 1e3 for s in range(tcfg.steps)}
+    traced = range(TRACE_FROM_STEP, TRACE_FROM_STEP + TRACE_STEPS)
+    plain = [dt[s] for s in dt if s % tcfg.refresh_every and s not in traced]
+    step_ms = statistics.median(plain)
+    refresh_ms = statistics.median(dt[s] - step_ms for s in dt
+                                   if s % tcfg.refresh_every == 0 and s > 0)
+    log(f"[train] fit: {tcfg.steps} steps in {fit_s:.1f} s; median step {step_ms:.3f} ms "
+        f"(first step {dt[0]:.1f} ms with the first refresh); routing refresh "
+        f"{refresh_ms:.1f} ms (median over {tcfg.steps // tcfg.refresh_every - 1})")
+    trace = kernel_times(prof, "train", f"{TRACE_STEPS} traced steps (wall: {TRACE_STEPS} "
+                         f"untraced median steps; traced {sum(dt[s] for s in traced):.1f} ms)",
+                         TRACE_STEPS * step_ms)
+    log(f"[train] peak device memory {peak_fit:.2f} GiB")
+    hist = state.history
+    check(all(math.isfinite(h["total"]) and math.isfinite(h["gnorm"]) for h in hist),
+          "a logged loss or gradient norm is not finite")
+    r = Q.rotation_matrix(cfg, state.params).detach()
+    ortho = float((r.T @ r - torch.eye(cfg.dim, device=r.device)).abs().max())
+    log(f"[train] |R^T R - I|_max {ortho:.3e}; loss total {hist[0]['total']:.4f} -> "
+        f"{hist[-1]['total']:.4f} (routing {hist[0]['routing']:.4f} -> "
+        f"{hist[-1]['routing']:.4f}, nbr {hist[0]['neighborhood']:.4f} -> "
+        f"{hist[-1]['neighborhood']:.4f}, alpha {hist[-1]['alpha']:.4f})")
+    check(ortho < 1e-4, f"R is not orthonormal: {ortho:.3e}")
+
+    # one step at the quant_train cell's shape (configs/rpq_paper.py)
+    qt = dataclasses.replace(tcfg, triplet_batch=8192, routing_batch=4096)
+    qt_step = T.make_train_step(cfg, qt, adam(one_cycle(qt.lr, qt.steps)))
+    model = T.to_model(cfg, state.params)
+    g = torch.Generator(device=dev).manual_seed(7)
+    pool = F.sample_routing(graph, ds.base, ds.base[torch.randperm(
+        ds.base.shape[0], generator=g, device=dev)[:qt.routing_pool_queries]],
+        base.encode(model, ds.base), lambda q: base.build_lut(model, q), h=qt.beam_h)
+
+    def quant_train_step():
+        anchors = torch.randint(0, ds.base.shape[0], (qt.triplet_batch,), generator=g,
+                                device=dev)
+        trip = F.sample_triplets(graph, ds.base, anchors, generator=g)
+        route = F.subsample_routing(pool, qt.routing_batch, generator=g)
+        return qt_step(state.params, state.opt_state, ds.base, trip, route, generator=g)
+
+    quant_train_step()
+    torch.cuda.reset_peak_memory_stats()
+    qt_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = quant_train_step()
+        torch.cuda.synchronize()
+        qt_ms.append((time.perf_counter() - t1) * 1e3)
+    check(math.isfinite(float(out[2].total)), "quant_train step loss not finite")
+    peak_qt = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[train] quant_train step (8192 triplets, 4096 routing x h=16): "
+        f"{statistics.median(qt_ms):.2f} ms (median of 3), peak {peak_qt:.2f} GiB")
+
+    # serve the RPQ codes beside PQ's from phase 5
+    codes = base.encode(model, ds.base)
+    lut_fn = lambda q: base.build_lut(model, q)
+    mem = InMemoryEngine(graph, codes, lut_fn, device=dev)
+    hyb = HybridEngine(graph, codes, lut_fn, vectors=ds.base, device=dev)
+    res_m, res_h = mem.search(ds.queries, k=10, h=32), hyb.search(ds.queries, k=10, h=32)
+    rec = {"inmemory": recall_at_k(res_m.ids, gt, 10), "hybrid": recall_at_k(res_h.ids, gt, 10)}
+    qps = {"inmemory": measure_qps(lambda q: mem.search(q, k=10, h=32), ds.queries)[0],
+           "hybrid": measure_qps(lambda q: hyb.search(q, k=10, h=32), ds.queries)[0]}
+    counts = ops.launch_counts()
+    sub = ds.base[:100_000]
+    mse = {"rpq": float(Q.reconstruction_mse(cfg, state.params, sub)),
+           "pq": float(Q.reconstruction_mse(cfg, params0, sub))}
+    log(f"[train] recall@10 (h=32) RPQ inmemory {rec['inmemory']:.4f} hybrid "
+        f"{rec['hybrid']:.4f} | PQ inmemory {pq_main['recall']['inmemory']:.4f} hybrid "
+        f"{pq_main['recall']['hybrid']:.4f}")
+    log(f"[train] QPS RPQ inmemory {qps['inmemory']:.1f} hybrid {qps['hybrid']:.1f} | "
+        f"PQ inmemory {pq_main['qps']['inmemory']:.1f} hybrid {pq_main['qps']['hybrid']:.1f}")
+    log(f"[train] reconstruction_mse on 100k rows: RPQ {mse['rpq']:.4f} PQ {mse['pq']:.4f}")
+    log(f"[train] launches: {counts}")
+    for name in ("pq_pairwise", "hop_adc"):
+        check(counts[name] > 0, f"kernel {name} was not launched on the training path")
+    for name, v in rec.items():
+        check(math.isfinite(v), f"RPQ recall {name} is not finite")
+    check(bool(torch.isfinite(res_m.dists).all()), "RPQ InMemoryEngine distances not finite")
+    result = dict(fit_s=fit_s, step_ms=step_ms, first_step_ms=dt[0], refresh_ms=refresh_ms,
+                  trace=trace, peak_gib=peak_fit,
+                  quant_train_ms=qt_ms, quant_train_peak_gib=peak_qt, ortho=ortho,
+                  history=hist, recall=rec, qps=qps, mse=mse, launches=counts)
+    return result, cfg, state.params, codes
+
+
+# --------------------------------------------------------------------------
+# phase 9: the retrieval scorer over the RPQ codes
+# --------------------------------------------------------------------------
+
+def retrieval_path(ds, cfg, params, codes, n_queries: int = 100, k: int = 100) -> dict:
+    """``score_candidates_adc`` (the ``adc_scan`` kernel and a stable
+    top-k) over the 1M RPQ codes for single queries, against the plain
+    scan's top-k, and timed beside ``score_candidates_exact``."""
+    import torch
+
+    from repro_torch.core import quantizer as Q
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import recsys
+    from repro_torch.search.engine import topk_lower
+
+    qs = ds.queries[:n_queries]
+    luts = Q.build_lut(cfg, params, qs).detach()
+    ops.reset_launch_counts()
+    got = [recsys.score_candidates_adc(luts[i], codes, k=k) for i in range(n_queries)]
+    counts = ops.launch_counts()
+    check(counts["adc_scan"] > 0, "kernel adc_scan was not launched on the retrieval path")
+    same = sum(bool(torch.equal(ids.long(), topk_lower(ref.adc_scan_ref(codes, luts[i])[None],
+                                                       k)[1][0]))
+               for i, (_, ids) in enumerate(got)) / n_queries
+    check(all(bool(torch.isfinite(v).all()) and v.shape == (k,) for v, _ in got),
+          "retrieval scores not finite or of the wrong shape")
+
+    def per_query_us(fn):
+        fn(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n_queries):
+            fn(i)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n_queries * 1e6
+
+    adc_us = per_query_us(lambda i: recsys.score_candidates_adc(luts[i], codes, k=k))
+    exact_us = per_query_us(lambda i: recsys.score_candidates_exact(qs[i], ds.base, k=k))
+    scan_us = per_query_us(lambda i: ops.adc_scan(codes, luts[i]))
+    log(f"[retrieval] {n_queries} single queries, k={k}, over {codes.shape[0]} RPQ codes: "
+        f"kernel top-{k} ids equal the plain scan's on {same:.4f} of queries")
+    log(f"[retrieval] per query: score_candidates_adc {adc_us:.1f} us (adc_scan alone "
+        f"{scan_us:.1f} us), score_candidates_exact (GEMV + top-k) {exact_us:.1f} us")
+    log(f"[retrieval] launches: {counts}")
+    check(same >= 0.99, "kernel-scored and plain-scored top-k ids disagree")
+    return dict(same_topk=same, adc_us=adc_us, adc_scan_us=scan_us, exact_us=exact_us,
+                launches=counts)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=float, default=10.0,
@@ -722,21 +1108,33 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels = parity_and_timing(n_base, 1000)
     kernels.update(fs4_parity_and_timing(n_base, 1000))
+    scorer_rows, backward = scorer_parity_and_timing(n_base, 1000)
+    kernels.update(scorer_rows)
     log(f"[parity] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     small_reference()
     log(f"[small] done in {time.perf_counter() - t0:.1f} s")
-    result, ds, gt, graph = main_path(args)
+    result, ds, gt, graph, pq_model, pq_codes = main_path(args)
+    phases = {"main": result}
     t0 = time.perf_counter()
-    fs4 = fs4_path(ds, gt, graph)
+    phases["fs4"] = fs4_path(ds, gt, graph)
     log(f"[fs4] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phases["gather"] = gather_path(ds, graph, pq_model, pq_codes)
+    log(f"[gather] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phases["train"], cfg, params, rpq_codes = train_path(ds, gt, graph, pq_model, result)
+    log(f"[train] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phases["retrieval"] = retrieval_path(ds, cfg, params, rpq_codes)
+    log(f"[retrieval] done in {time.perf_counter() - t0:.1f} s")
     for name, row in kernels.items():
-        row["launches"] = result["launches"][name] + fs4["launches"][name]
+        row["launches"] = sum(p["launches"][name] for p in phases.values())
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"device": smi, "kernels": kernels, "main": result, "fs4": fs4},
-                      f, indent=1)
+            json.dump({"device": smi, "kernels": kernels, "pq_pairwise_backward": backward,
+                       **phases}, f, indent=1)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

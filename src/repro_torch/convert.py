@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.common.optim import OptState
+from repro_torch.core.quantizer import RPQParams
 from repro_torch.device import resolve_device
 from repro_torch.graphs.adjacency import Graph
 from repro_torch.pq.base import QuantizerModel
@@ -49,3 +51,21 @@ def quantized_lut_from_numpy(lut, scale, bias, *, device=None) -> QuantizedLUT:
         lut=torch.from_numpy(np.array(lut, dtype=np.uint8)).to(dev),
         scale=torch.from_numpy(np.array(scale, dtype=np.float32)).to(dev),
         bias=torch.from_numpy(np.array(bias, dtype=np.float32)).to(dev))
+
+
+def rpq_params_from_numpy(theta, codebooks, log_alpha, *, device=None) -> RPQParams:
+    """A ``repro.core.quantizer.RPQParams``'s arrays → the port's (f32)."""
+    dev = resolve_device(device)
+    as_f32 = lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+    return RPQParams(theta=as_f32(theta), codebooks=as_f32(codebooks),
+                     log_alpha=as_f32(log_alpha))
+
+
+def opt_state_from_numpy(step, m, v, *, device=None) -> OptState:
+    """An Adam ``OptState``: its step and its moment trees (``RPQParams``
+    of arrays each, as ``(m, v)`` of the reference) → the port's."""
+    dev = resolve_device(device)
+    return OptState(step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                                      device=dev),
+                    inner=(rpq_params_from_numpy(*m, device=dev),
+                           rpq_params_from_numpy(*v, device=dev)))

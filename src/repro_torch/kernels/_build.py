@@ -23,7 +23,8 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
-NAMES = ("pq_pairwise", "hop_adc", "adc_scan", "hop_adc_fs", "adc_scan_fs")
+NAMES = ("pq_pairwise", "hop_adc", "adc_scan", "hop_adc_fs", "adc_scan_fs",
+         "hop_gather")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"

@@ -1,10 +1,17 @@
-"""Wrapper of the batched ADC scan kernel (``csrc/adc_scan.cu``).
+"""Wrappers of the ADC scan kernels (``csrc/adc_scan.cu``).
 
-Replaces ``repro/kernels/adc_scan.py::adc_scan_batch``: bulk ADC of every
-code row against a batch of query LUTs, in f32 (the TPU kernel's bf16
-one-hot GEMM is not carried over). It is bound by the (Q, N) output writes,
-4 GB at 1000 × 1M. Callers go through
-:func:`repro_torch.kernels.ops.adc_scan_batch`.
+:func:`adc_scan_batch` replaces ``repro/kernels/adc_scan.py::adc_scan_batch``:
+bulk ADC of every code row against a batch of query LUTs, in f32 (the TPU
+kernel's bf16 one-hot GEMM is not carried over). It is bound by the (Q, N)
+output writes, 4 GB at 1000 × 1M.
+
+:func:`adc_scan` replaces ``repro/kernels/adc_scan.py::adc_scan``: one
+query's LUT against every code row, the retrieval scorer's scan
+(``models/recsys.score_candidates_adc``). It is bound by the code bytes and
+the (N,) output, 20 MB at 1M × 16.
+
+Callers go through :func:`repro_torch.kernels.ops.adc_scan_batch` and
+:func:`repro_torch.kernels.ops.adc_scan`.
 """
 
 from __future__ import annotations
@@ -15,7 +22,9 @@ import torch
 
 from repro_torch.kernels import _build
 
-launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
+# kernel launches since the last reset (chip_smoke.py reads them):
+launches = 0          # adc_scan_batch
+query_launches = 0    # adc_scan, one query
 
 # Shared memory a block spends on its query tile's LUTs: 64 KB keeps three
 # blocks resident per SM at M=16, K=256 (tile of 4 queries).
@@ -24,6 +33,7 @@ MAX_QUERY_TILE = 8          # the kernel's register accumulators per thread
 MAX_QUERIES_PER_LAUNCH = 65535  # grid.y limit times the smallest tile
 
 _fn = None
+_query_fn = None
 
 
 def _entry():
@@ -84,3 +94,49 @@ def adc_scan_batch(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
         q1 = min(q, q0 + MAX_QUERIES_PER_LAUNCH)
         launch(codes, luts[q0:q1], out[q0:q1])
     return out
+
+
+def _query_entry():
+    global _query_fn
+    if _query_fn is None:
+        fn = _build.load("adc_scan").adc_scan_launch
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _query_fn = fn
+    return _query_fn
+
+
+def launch_query(codes: torch.Tensor, lut: torch.Tensor,
+                 out: torch.Tensor) -> torch.Tensor:
+    """Launch the one-query kernel on checked tensors; no validation here."""
+    global query_launches
+    n, m = codes.shape
+    if n:
+        err = _query_entry()(codes.data_ptr(), n, m, lut.data_ptr(), lut.shape[1],
+                             out.data_ptr(), _build.stream_handle(codes.device))
+        _build.check("adc_scan", err)
+        query_launches += 1
+    return out
+
+
+def adc_scan(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """(N, M) uint8 codes × (M, K) f32 LUT → (N,) f32 on the card."""
+    for name, t, dtype in (("codes", codes, torch.uint8),
+                           ("lut", lut, torch.float32)):
+        if t.device.type != "cuda" or t.device != codes.device:
+            raise ValueError(f"adc_scan: {name} must be on {codes.device} (CUDA)")
+        if t.dtype != dtype or t.dim() != 2 or not t.is_contiguous():
+            raise ValueError(f"adc_scan: {name} must be a contiguous 2-d "
+                             f"{dtype} tensor, got {t.dtype} {tuple(t.shape)}")
+    n, m = codes.shape
+    if lut.shape[0] != m:
+        raise ValueError(f"adc_scan: lut {tuple(lut.shape)} does not match "
+                         f"codes {tuple(codes.shape)}")
+    if lut.shape[1] > 256:
+        raise ValueError("adc_scan: uint8 codes address at most K=256 codewords")
+    if m * lut.shape[1] * 4 > 200 * 1024:
+        raise ValueError("adc_scan: the LUT must fit in shared memory")
+    out = torch.empty((n,), dtype=torch.float32, device=codes.device)
+    return launch_query(codes, lut, out)

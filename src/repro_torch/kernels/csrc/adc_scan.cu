@@ -1,4 +1,4 @@
-// Batched ADC scan: every code row against a batch of query LUTs.
+// ADC scans: every code row against a batch of query LUTs, or one query's.
 //
 // Replaces repro/kernels/adc_scan.py::adc_scan_batch (Pallas,
 // _adc_scan_batch_kernel).
@@ -16,6 +16,17 @@
 // per query of the tile in registers; out[q, n] writes are coalesced
 // across the threads of a warp.
 
+// adc_scan_kernel (one query) replaces repro/kernels/adc_scan.py::adc_scan
+// (Pallas, _adc_scan_kernel), the retrieval scorer's scan:
+//   out[n] = sum_j lut[j, codes[n, j]]
+// Bound: bytes, the N*M code bytes and the N f32 outputs (20 MB at 1M x 16).
+// A grid-stride loop over a few blocks per SM, so each block stages the
+// (M, K) LUT in shared memory ONCE (a block per 256 rows would re-read the
+// 16 KB LUT ~3900 times, 3x the kernel's own bytes in L2 traffic). One
+// thread per row reads its codes with 16-byte loads when M % 16 == 0 and the
+// rows are 16-byte aligned (byte loads otherwise) and sums the M lookups in
+// j order, as the plain version does; writes along N coalesce.
+
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -24,6 +35,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kRowIters = 16;
 constexpr int kMaxQueryTile = 8;
+constexpr int kScanThreads = 256;   // adc_scan_kernel
+constexpr int kScanBlocksPerSm = 4;
 
 __global__ void adc_scan_batch_kernel(const uint8_t* __restrict__ codes,
                                       int64_t n, int m,
@@ -57,6 +70,36 @@ __global__ void adc_scan_batch_kernel(const uint8_t* __restrict__ codes,
   }
 }
 
+__global__ void adc_scan_kernel(const uint8_t* __restrict__ codes, int64_t n,
+                                int m, const float* __restrict__ lut, int k,
+                                bool vec16, float* __restrict__ out) {
+  extern __shared__ float lut_one[];  // (m, k)
+  const int mk = m * k;
+  for (int i = threadIdx.x; i < mk; i += blockDim.x) lut_one[i] = lut[i];
+  __syncthreads();
+
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       row < n; row += stride) {
+    const uint8_t* c = codes + row * m;
+    float acc = 0.f;
+    if (vec16) {
+      for (int j0 = 0; j0 < m; j0 += 16) {
+        const uint4 v = *reinterpret_cast<const uint4*>(c + j0);
+        const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int b = 0; b < 16; ++b) {
+          const int code = (w[b >> 2] >> (8 * (b & 3))) & 0xFF;
+          acc += lut_one[(j0 + b) * k + code];
+        }
+      }
+    } else {
+      for (int j = 0; j < m; ++j) acc += lut_one[j * k + c[j]];
+    }
+    out[row] = acc;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -76,6 +119,31 @@ int adc_scan_batch_launch(const void* codes, int64_t n, int m,
   adc_scan_batch_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(codes), n, m, static_cast<const float*>(luts),
       q, k, tq, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int adc_scan_launch(const void* codes, int64_t n, int m, const void* lut, int k,
+                    void* out, void* stream) {
+  const size_t smem = static_cast<size_t>(m) * k * sizeof(float);
+  cudaError_t err;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(adc_scan_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t need = (n + kScanThreads - 1) / kScanThreads;
+  const int64_t cap = static_cast<int64_t>(sms) * kScanBlocksPerSm;
+  const unsigned blocks = static_cast<unsigned>(need < cap ? need : cap);
+  const bool vec16 = (m % 16 == 0) && (reinterpret_cast<uintptr_t>(codes) % 16 == 0);
+  adc_scan_kernel<<<blocks, kScanThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(codes), n, m, static_cast<const float*>(lut), k,
+      vec16, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

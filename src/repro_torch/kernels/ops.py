@@ -19,10 +19,12 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import full_f32_matmul
 from repro_torch.kernels import adc_scan as _adc
 from repro_torch.kernels import adc_scan_fs as _adcfs
 from repro_torch.kernels import hop_adc as _hop
 from repro_torch.kernels import hop_adc_fs as _hopfs
+from repro_torch.kernels import hop_gather as _hopg
 from repro_torch.kernels import pq_pairwise as _pqp
 from repro_torch.kernels import ref as _ref
 
@@ -61,13 +63,48 @@ def _check_k(k: int) -> None:
         raise ValueError(f"uint8 codes address at most K=256 codewords, got K={k}")
 
 
+def pq_pairwise_backward(x: torch.Tensor, codebook: torch.Tensor,
+                         grad: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gradients of ``pq_pairwise`` for an upstream (N, M, K) ``grad``, per
+    subspace: ``gx = 2·(x·Σ_k g − g·c)`` and ``gc = 2·(c·Σ_n g − gᵀ·x)``.
+
+    The JAX package has no backward kernel: off the TPU it differentiates
+    the oracle ``x² − 2·x·c + c²``, and its Pallas kernel cannot be
+    differentiated at all. So these are two batched products and two
+    reductions in PyTorch, in full f32, the same on every device."""
+    full_f32_matmul()
+    gx = 2.0 * (x * grad.sum(dim=2, keepdim=True)
+                - torch.einsum("nmk,mkd->nmd", grad, codebook))
+    gc = 2.0 * (codebook * grad.sum(dim=0)[:, :, None]
+                - torch.einsum("nmk,nmd->mkd", grad, x))
+    return gx, gc
+
+
+class _PQPairwise(torch.autograd.Function):
+    """``pq_pairwise`` with a gradient: the forward dispatches on the device
+    (kernel for a CUDA tensor, plain version for a CPU one), the backward is
+    :func:`pq_pairwise_backward` on both."""
+
+    @staticmethod
+    def forward(ctx, x, codebook):
+        ctx.save_for_backward(x, codebook)
+        if x.is_cuda:
+            return _pqp.pq_pairwise(x, codebook)
+        return _ref.pq_pairwise_ref(x, codebook)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, codebook = ctx.saved_tensors
+        gx, gc = pq_pairwise_backward(x, codebook, grad.contiguous())
+        return (gx if ctx.needs_input_grad[0] else None,
+                gc if ctx.needs_input_grad[1] else None)
+
+
 def pq_pairwise(x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     """Sub-vector/codeword distance table: (N, M, dsub) × (M, K, dsub) →
-    (N, M, K) f32."""
-    x, codebook = _f32(x), _f32(codebook)
-    if x.is_cuda:
-        return _pqp.pq_pairwise(x, codebook)
-    return _ref.pq_pairwise_ref(x, codebook)
+    (N, M, K) f32. Differentiable in both inputs: the result carries a
+    ``grad_fn`` whenever an input requires grad."""
+    return _PQPairwise.apply(_f32(x), _f32(codebook))
 
 
 def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor
@@ -97,6 +134,26 @@ def hop_adc(codes: torch.Tensor, ids: torch.Tensor, luts: torch.Tensor, *,
     if mp:
         return _ref.hop_adc_ref(codes[:, :mp], ids, luts[:, :mp])
     return _ref.hop_adc_ref(codes, ids, luts)
+
+
+def hop_gather(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
+    """Per-hop beam ADC on PRE-GATHERED codes: (Q, R, M) codes × (Q, M, K)
+    LUTs → (Q, R) f32. Prefer :func:`hop_adc` where the ids are still at
+    hand — it fuses the gather too."""
+    codes, luts = _codes_u8(codes), _f32(luts)
+    _check_k(luts.shape[2])
+    if codes.is_cuda:
+        return _hopg.hop_gather(codes, luts)
+    return _ref.hop_gather_ref(codes, luts)
+
+
+def adc_scan(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """One-query ADC scan: (N, M) codes × (M, K) LUT → (N,) f32."""
+    codes, lut = _codes_u8(codes), _f32(lut)
+    _check_k(lut.shape[1])
+    if codes.is_cuda:
+        return _adc.adc_scan(codes, lut)
+    return _ref.adc_scan_ref(codes, lut)
 
 
 def adc_scan_batch(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
@@ -151,12 +208,14 @@ def hop_adc_fs(packed: torch.Tensor, ids: torch.Tensor, luts_u8: torch.Tensor,
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
-    for mod in (_pqp, _hop, _adc, _hopfs, _adcfs):
+    for mod in (_pqp, _hop, _adc, _hopfs, _adcfs, _hopg):
         mod.launches = 0
+    _adc.query_launches = 0
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`."""
     return {"pq_pairwise": _pqp.launches, "hop_adc": _hop.launches,
             "adc_scan_batch": _adc.launches, "hop_adc_fs": _hopfs.launches,
-            "adc_scan_fs": _adcfs.launches}
+            "adc_scan_fs": _adcfs.launches, "adc_scan": _adc.query_launches,
+            "hop_gather": _hopg.launches}

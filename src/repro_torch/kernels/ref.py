@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the kernels on the serving path.
+"""Plain PyTorch versions of the port's kernels.
 
 Each is the semantics contract of one CUDA kernel (``kernels/csrc/``) and a
 port of the JAX oracle of the same name in ``repro/kernels/ref.py``. The
@@ -26,6 +26,18 @@ def hop_adc_ref(codes: torch.Tensor, ids: torch.Tensor,
     LUTs → (Q, R′) f32, ``out[q, i] = sum_j luts[q, j, codes[ids[q, i], j]]``.
     """
     return hop_gather_ref(codes[ids.long()], luts)
+
+
+def adc_scan_ref(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """One-query ADC scan: (N, M) codes × (M, K) LUT → (N,) f32
+    ``sum_j lut[j, codes[n, j]]``, accumulated one subspace at a time in j
+    order (the kernel's order) without the (N, M) gather."""
+    lut = lut.float()
+    idx = codes.long()
+    out = torch.zeros(codes.shape[0], dtype=torch.float32, device=lut.device)
+    for j in range(codes.shape[1]):
+        out += lut[j][idx[:, j]]
+    return out
 
 
 def adc_scan_batch_ref(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
-from repro_torch.search.beam import SearchResult, beam_search
+from repro_torch.search.beam import (SearchResult, Trace, beam_search,
+                                     beam_search_trace)
 from repro_torch.search.engine import HybridEngine, InMemoryEngine, ShardedEngine
 
-__all__ = ["SearchResult", "beam_search", "HybridEngine", "InMemoryEngine",
-           "ShardedEngine"]
+__all__ = ["SearchResult", "Trace", "beam_search", "beam_search_trace",
+           "HybridEngine", "InMemoryEngine", "ShardedEngine"]

@@ -22,8 +22,11 @@ lane's own step count.
 neighbors deduplicated and scored in one call (DESIGN.md §9); ``expand=1``
 keeps the classic semantics, in-row duplicates included.
 
-Tombstones, multi-entry seeding, hop pruning, deadline budgets and
-``beam_search_trace`` belong to later slices of the port.
+``beam_search_trace`` also records the ranked beam after every round, the
+paper's Definition 6 routing features (RPQ training's ``sample_routing``).
+
+Tombstones, multi-entry seeding, hop pruning and deadline budgets belong to
+later slices of the port.
 """
 
 from __future__ import annotations
@@ -54,6 +57,14 @@ class SearchResult:
     # True when the serving layer knows the answer is incomplete (a dead
     # shard dropped from the merge); False for beams and single engines
     degraded: bool = False
+
+
+@dataclasses.dataclass
+class Trace:
+    beam_ids: torch.Tensor    # (Q, T, h) int32 beam AFTER each round's merge
+    beam_dists: torch.Tensor  # (Q, T, h) f32
+    hop_valid: torch.Tensor   # (Q, T) bool — round actually happened
+    result: SearchResult
 
 
 def _bit_get(bits: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -126,6 +137,29 @@ def beam_search(neighbors: torch.Tensor, entry, qdatas: torch.Tensor,
       max_steps: ROUND cap per query.
       expand:    frontier batch size E — nodes expanded per round.
     """
+    return _beam(neighbors, entry, qdatas, dist_fn, h=h, max_steps=max_steps,
+                 expand=expand, trace_len=0)[0]
+
+
+def beam_search_trace(neighbors: torch.Tensor, entry, qdatas: torch.Tensor,
+                      dist_fn: Callable, *, h: int = 32, max_steps: int = 256,
+                      trace_len: int = 64, expand: int = 1) -> Trace:
+    """:func:`beam_search` that also records the ranked beam after every
+    round. ``hop_valid[q, t]`` flags ROUNDS: a live lane records its beam at
+    slot ``t = rounds so far`` while ``t < trace_len``, so the flagged prefix
+    counts ``min(rounds, trace_len)``; later rounds leave the last slot
+    alone, and frozen lanes record nothing. Unrecorded slots hold the
+    sentinel id N at +inf."""
+    if trace_len < 1:
+        raise ValueError("beam_search_trace: trace_len must be at least 1")
+    res, trace = _beam(neighbors, entry, qdatas, dist_fn, h=h,
+                       max_steps=max_steps, expand=expand, trace_len=trace_len)
+    tbi, tbd, tbv = trace
+    return Trace(tbi.to(torch.int32), tbd, tbv, res)
+
+
+def _beam(neighbors, entry, qdatas, dist_fn, *, h, max_steps, expand,
+          trace_len):
     n, r = neighbors.shape
     dev = neighbors.device
     nq = (qdatas.lut if isinstance(qdatas, QuantizedLUT) else qdatas).shape[0]
@@ -146,6 +180,12 @@ def beam_search(neighbors: torch.Tensor, entry, qdatas: torch.Tensor,
     ndist = torch.ones(nq, dtype=torch.int32, device=dev)
     step = torch.zeros(nq, dtype=torch.int32, device=dev)
     pad = torch.zeros((nq, e * r), dtype=torch.bool, device=dev)
+
+    if trace_len:
+        lanes = torch.arange(nq, device=dev)
+        tbi = torch.full((nq, trace_len, h), n, dtype=torch.int64, device=dev)
+        tbd = torch.full((nq, trace_len, h), INF, dtype=torch.float32, device=dev)
+        tbv = torch.zeros((nq, trace_len), dtype=torch.bool, device=dev)
 
     def live_lanes():
         return (step < max_steps) & (~exp & (dists < INF)).any(dim=1)
@@ -187,12 +227,20 @@ def beam_search(neighbors: torch.Tensor, entry, qdatas: torch.Tensor,
         ids = torch.where(keep, all_ids.gather(1, order), ids)
         exp = torch.where(keep, all_e.gather(1, order) | (new_d == INF), exp)
         dists = torch.where(keep, new_d, dists)
+        if trace_len:
+            # 5. record each live lane's ranked beam at slot step (paper
+            #    Def. 6); rounds beyond trace_len keep the last slot
+            slot = step.long().clamp(max=trace_len - 1)
+            rec = live & (step < trace_len)
+            tbi[lanes, slot] = torch.where(rec[:, None], ids, tbi[lanes, slot])
+            tbd[lanes, slot] = torch.where(rec[:, None], dists, tbd[lanes, slot])
+            tbv[lanes, slot] = tbv[lanes, slot] | rec
         step = step + live.to(torch.int32)
         live = live_lanes()
 
     truncated = (~exp & (dists < INF)).any(dim=1)
-    return SearchResult(ids.to(torch.int32), dists, hops, ndist, step,
-                        truncated)
+    res = SearchResult(ids.to(torch.int32), dists, hops, ndist, step, truncated)
+    return res, ((tbi, tbd, tbv) if trace_len else None)
 
 
 # --------------------------------------------------------------------------

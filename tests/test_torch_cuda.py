@@ -150,3 +150,58 @@ def test_fs_ops_dequantize_like_plain(dev):
     torch.testing.assert_close(ops.adc_scan_fs(packed, luts, scale, bias),
                                ref.adc_scan_fs_ref(packed, luts, scale, bias),
                                rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n,m,k", [(1_000_003, 16, 256), (4099, 16, 256), (3001, 7, 256),
+                                   (777, 8, 16), (1, 16, 256)])
+def test_adc_scan_kernel_matches_plain(dev, n, m, k):
+    """One-query scan: ragged N, odd M (byte loads), K < 256, one row; the
+    same LUT as a row of the batched kernel."""
+    rng = np.random.default_rng(n)
+    codes = torch.from_numpy(rng.integers(0, k, (n, m)).astype(np.uint8)).to(dev)
+    lut = torch.from_numpy((rng.random((m, k)) * 4.0).astype(np.float32)).to(dev)
+    got = ops.adc_scan(codes, lut)
+    torch.testing.assert_close(got, ref.adc_scan_ref(codes, lut), rtol=1e-6, atol=1e-6)
+    if n < 10**6:
+        torch.testing.assert_close(got, ops.adc_scan_batch(codes, lut[None])[0],
+                                   rtol=1e-6, atol=1e-6)
+
+
+def test_adc_scan_kernel_unaligned_rows(dev):
+    """Rows that do not start on 16 bytes take the byte-load path."""
+    rng = np.random.default_rng(3)
+    codes = torch.from_numpy(rng.integers(0, 256, (999, 16)).astype(np.uint8)).to(dev)
+    flat = torch.empty(codes.numel() + 1, dtype=torch.uint8, device=dev)
+    flat[1:] = codes.reshape(-1)
+    view = flat[1:].view(codes.shape)
+    lut = torch.rand((16, 256), device=dev)
+    torch.testing.assert_close(ops.adc_scan(view, lut), ref.adc_scan_ref(view, lut),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("q,r,m,k", [(1000, 64, 16, 256), (37, 200, 7, 256),
+                                     (1, 64, 16, 16), (5, 1, 16, 256)])
+def test_hop_gather_kernel_matches_plain_and_hop_adc(dev, q, r, m, k):
+    codes, ids, luts = _inputs(dev, n=5000, m=m, k=k, q=q, r=r, seed=q + r)
+    got = ops.hop_gather(codes[ids.long()], luts)
+    torch.testing.assert_close(got, ref.hop_gather_ref(codes[ids.long()], luts),
+                               rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(got, ops.hop_adc(codes, ids, luts), rtol=0, atol=0)
+
+
+def test_pq_pairwise_gradient_on_the_card(dev):
+    """The autograd Function (kernel forward, PyTorch backward) against
+    autograd of the plain version, both on CUDA tensors."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn((9728, 16, 8), generator=g, device=dev)
+    cb = torch.randn((16, 256, 8), generator=g, device=dev)
+    up = torch.randn((9728, 16, 256), generator=g, device=dev)
+    x1, c1 = x.clone().requires_grad_(), cb.clone().requires_grad_()
+    x2, c2 = x.clone().requires_grad_(), cb.clone().requires_grad_()
+    ops.reset_launch_counts()
+    out = ops.pq_pairwise(x1, c1)
+    assert ops.launch_counts()["pq_pairwise"] == 1 and out.grad_fn is not None
+    out.backward(up)
+    ref.pq_pairwise_ref(x2, c2).backward(up)
+    torch.testing.assert_close(x1.grad, x2.grad, rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(c1.grad, c2.grad, rtol=1e-5, atol=1e-2)

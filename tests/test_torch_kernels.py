@@ -15,6 +15,7 @@ from repro_torch.kernels import adc_scan as t_adc
 from repro_torch.kernels import adc_scan_fs as t_adcfs
 from repro_torch.kernels import hop_adc as t_hop
 from repro_torch.kernels import hop_adc_fs as t_hopfs
+from repro_torch.kernels import hop_gather as t_hopg
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import pq_pairwise as t_pqp
 from repro_torch.kernels import ref as tref
@@ -115,6 +116,48 @@ def test_hop_gather_ref_matches_jax():
                                rtol=1e-6)
 
 
+@pytest.mark.parametrize("shape", [(17, 4, 16), (1000, 8, 64), (2049, 16, 256),
+                                   (333, 5, 200)])
+def test_adc_scan_matches_jax(shape):
+    """One-query scan: the JAX oracle and the Pallas kernel in interpret
+    mode (its VPU compare-and-sum runs in f32, so it agrees as closely)."""
+    n, m, k = shape
+    rng = np.random.default_rng(n + m)
+    codes = rng.integers(0, k, (n, m)).astype(np.uint8)
+    lut = (rng.random((m, k)) * 4.0).astype(np.float32)
+    got = tops.adc_scan(T(codes), T(lut))
+    assert got.dtype == torch.float32 and got.shape == (n,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jref.adc_scan_ref(codes, lut)),
+                               rtol=1e-6)
+    interp = jops.adc_scan(codes, lut, backend="interpret", block_n=256)
+    np.testing.assert_allclose(got.numpy(), np.asarray(interp), rtol=1e-6)
+    # the same LUT as row q of the batched scan
+    luts = np.stack([lut * 0.5, lut])
+    np.testing.assert_allclose(tops.adc_scan_batch(T(codes), T(luts))[1].numpy(),
+                               got.numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("q,r,m,k", [(6, 24, 8, 64), (1, 64, 16, 256), (9, 1, 5, 16)])
+def test_hop_gather_matches_jax(q, r, m, k):
+    rng = np.random.default_rng(q * r + m)
+    codes = rng.integers(0, k, (q, r, m)).astype(np.uint8)
+    luts = (rng.random((q, m, k)) * 4.0).astype(np.float32)
+    got = tops.hop_gather(T(codes), T(luts))
+    assert got.dtype == torch.float32 and got.shape == (q, r)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jref.hop_gather_ref(codes, luts)),
+                               rtol=1e-6)
+    interp = jops.hop_gather(codes, luts, backend="interpret", block_q=4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(interp), rtol=1e-6)
+
+
+def test_hop_gather_of_gathered_rows_is_hop_adc():
+    rng = np.random.default_rng(12)
+    codes, ids, luts = _hop_inputs(rng, n=301, m=8, k=64, q=5, r=64)
+    np.testing.assert_array_equal(
+        tops.hop_gather(T(codes)[T(ids).long()], T(luts)).numpy(),
+        tops.hop_adc(T(codes), T(ids), T(luts)).numpy())
+
+
 def test_pad_sentinel_row_matches_jax():
     x = np.arange(12, dtype=np.float32).reshape(4, 3)
     got = tops.pad_sentinel_row(T(x))
@@ -133,6 +176,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         t_adc.adc_scan_batch(T(codes), T(luts))
     with pytest.raises(ValueError, match="CUDA"):
         t_pqp.pq_pairwise(T(luts[:, :, :4].copy()), T(luts[0][:, :, None].copy()))
+    with pytest.raises(ValueError, match="CUDA"):
+        t_adc.adc_scan(T(codes), T(luts[0]))
+    with pytest.raises(ValueError, match="CUDA"):
+        t_hopg.hop_gather(T(codes[ids]), T(luts))
 
 
 def test_fs_kernel_wrappers_refuse_cpu_tensors():
@@ -162,6 +209,9 @@ def test_launch_counts_reset_and_cpu_path_launches_nothing():
     scale, bias = torch.ones(2), torch.zeros(2)
     tops.hop_adc_fs(packed, T(ids), luts_u8, scale, bias)
     tops.adc_scan_fs(packed, luts_u8, scale, bias)
+    tops.adc_scan(T(codes), T(luts[0]))
+    tops.hop_gather(T(codes[ids]), T(luts))
     assert tops.launch_counts() == {"pq_pairwise": 0, "hop_adc": 0,
                                     "adc_scan_batch": 0, "hop_adc_fs": 0,
-                                    "adc_scan_fs": 0}
+                                    "adc_scan_fs": 0, "adc_scan": 0,
+                                    "hop_gather": 0}

@@ -335,7 +335,9 @@ def test_import_repro_torch_loads_no_jax():
     code = ("import sys; sys.path.insert(0, 'src'); import repro_torch, "
             "repro_torch.convert, repro_torch.search.engine, "
             "repro_torch.graphs.vamana, repro_torch.pq, repro_torch.pq.pack, "
-            "repro_torch.dist.fault, repro_torch.data; "
+            "repro_torch.dist.fault, repro_torch.data, repro_torch.common, "
+            "repro_torch.core, repro_torch.core.trainer, repro_torch.core.rpq, "
+            "repro_torch.models.recsys, repro_torch.kernels.hop_gather; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
