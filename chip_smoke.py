@@ -16,11 +16,16 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    ``hop_gather`` also against ``adc_scan_batch`` and ``hop_adc``), the
    ``pq_pairwise`` gradient against autograd of its plain version, then
    CUDA-event times of the kernel, the plain version and, where one PyTorch
-   call computes the same function, that call (``hop_adc``, ``hop_adc_fs``,
-   ``hop_gather`` and ``adc_scan``, shorter than their Python launch, are
-   timed by replaying a captured CUDA graph of many launches; the fs4
-   dequant pass is timed beside ``adc_scan_fs``, the PyTorch backward of
-   ``pq_pairwise`` at the default training step's shape);
+   call computes the same function, that call (``cdist`` for
+   ``pq_pairwise``; one ``embedding_bag`` for ``adc_scan_batch``,
+   ``adc_scan`` and ``hop_gather``, its inputs built by ``lut_bag`` outside
+   the timed window; ``hop_adc``, ``hop_adc_fs``, ``hop_gather`` and
+   ``adc_scan``, shorter than their Python launch, and the last two's
+   library calls are timed by replaying a captured CUDA graph of many
+   launches, ``hop_adc_fs`` beside an empty kernel on its grid; the fs4
+   dequant pass is timed beside ``adc_scan_fs``, ``adc_scan_batch`` beside
+   its shared-memory floor, the PyTorch backward of ``pq_pairwise`` at the
+   default training step's shape);
 4. small reference: the unit-test dataset served on the card and on the CPU
    (the plain versions) from the same graph and quantizer must agree;
 5. u8 path at full width: ``load_dataset("sift", scale=10)``, ``knn_ids``
@@ -32,10 +37,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 6. fs4 path at full width, on phase 5's dataset and graph:
    ``train_pq_fs4(M=16)``, ``encode`` + ``pack_codes``, quantized LUTs,
    ``InMemoryEngine`` / ``HybridEngine`` search (k=10, h=32) and the
-   one-shard ``ShardedEngine`` scan with exact rerank (k=10), their QPS, a
-   traced fs4 search, launch counts read around this phase alone; then the
-   checks (kernel- vs plain-routed top-10, fs4 vs f32 ADC within M·scale,
-   fs4 memory below u8) and the times of the scan engine's dequant and
+   one-shard ``ShardedEngine`` scan with exact rerank (k=10), the same
+   engine over phase 5's u8 codes, their QPS, a traced fs4 search, launch
+   counts read around this phase alone; then the checks (kernel- vs
+   plain-routed top-10, fs4 vs f32 ADC within M·scale, fs4 memory below
+   u8) and the times of the scan engines' kernels (u8), dequant (fs4) and
    top-k at 1000 x 1M;
 7. gather: phase 5's search with every round scored by ``ops.hop_gather``
    on rows gathered in PyTorch; ids, distances and counters must equal the
@@ -157,6 +163,63 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def lut_bag(codes, luts):
+    """Index and weight tensors with which ONE ``F.embedding_bag(idx, w,
+    mode="sum")`` call computes an ADC function, each bag holding its M LUT
+    entries in j order (the library yardstick; the port never calls it):
+
+    - codes (N, M), luts (Q, M, K): ``adc_scan_batch``, result (N, Q), its
+      transpose;
+    - codes (N, M), luts (M, K): ``adc_scan``, result (N, 1);
+    - codes (Q, R, M), luts (Q, M, K): ``hop_gather``, result (Q·R, 1).
+
+    Built outside any timed window."""
+    import torch
+
+    dev = codes.device
+    if codes.dim() == 3:
+        q, m, k = luts.shape
+        off = (torch.arange(q, device=dev)[:, None, None] * m
+               + torch.arange(m, device=dev)[None, None, :]) * k
+        return (codes.long() + off).reshape(-1, m), luts.reshape(-1, 1)
+    m, k = luts.shape[-2:]
+    idx = codes.long() + torch.arange(m, device=dev) * k
+    if luts.dim() == 2:
+        return idx, luts.reshape(-1, 1)
+    return idx, luts.permute(1, 2, 0).reshape(m * k, luts.shape[0]).contiguous()
+
+
+LIBRARY_CALL = ('torch.nn.functional.embedding_bag(idx, w, mode="sum"), idx and w '
+                'built by lut_bag outside the timed window')
+
+
+def library_time(codes, luts, want, *, graph: bool = False) -> tuple[float, float]:
+    """Time of the one ``embedding_bag`` call that computes the same ADC
+    function (CUDA events, or graph replay for the short rows), and its max
+    abs error against ``want`` (a yardstick only: not held to a tolerance,
+    since its sum order on the card is the library's)."""
+    import torch
+
+    idx, w = lut_bag(codes, luts)
+    call = lambda: torch.nn.functional.embedding_bag(idx, w, mode="sum")
+    err = float((call().reshape(want.shape) - want).abs().max())
+    ms = graph_ms(call, iters=50) if graph else cuda_ms(call, iters=3)
+    return ms, err
+
+
+def smem_floor_ms(lookup_bytes: float) -> float:
+    """Least time to read ``lookup_bytes`` from shared memory with no bank
+    conflict: 128 bytes per clock per SM, at the card's SM count and its
+    maximum SM clock (``nvidia-smi``)."""
+    import torch
+
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                "--format=csv,noheader,nounits"], capture_output=True,
+                               text=True, timeout=60, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return lookup_bytes / (128 * sms * mhz * 1e6) * 1e3
+
+
 def compare(name: str, got, want, *, rtol: float, atol: float) -> float:
     """Max abs error of ``got`` vs ``want``; fails beyond atol + rtol·|want|."""
     import torch
@@ -237,16 +300,25 @@ def parity_and_timing(n_base: int, n_query: int) -> dict:
                                 ops.hop_adc(codes, ids, luts, m_prefix=mp), want,
                                 rtol=1e-6, atol=1e-6))
 
-    # adc_scan_batch: the main path's 1000 x N_base; ragged N, M=8, a query
-    # count that is not a multiple of the tile
+    # adc_scan_batch, bit for bit: the main path's 1000 x N_base; ragged N,
+    # M=8, odd M (byte loads), M=32 (a 4-query tile), K < 256, query counts
+    # off the 8-query tile, a single row, and rows one byte off 16 (byte
+    # loads at M=16)
     codes_full = codes_p[:n_base]
     luts_full = rand_luts(n_query, m)
+    flat = torch.empty(4099 * m + 1, dtype=torch.uint8, device=dev)
+    flat[1:] = rand_codes(4099, m).reshape(-1)
     for codes, luts in ((codes_full, luts_full), (rand_codes(4099, m), rand_luts(7, m)),
-                        (rand_codes(10007, 8), rand_luts(13, 8))):
+                        (rand_codes(10007, 8), rand_luts(13, 8)),
+                        (rand_codes(3001, 7, 100), rand_luts(37, 7, 100)),
+                        (rand_codes(2049, 32), rand_luts(13, 32)),
+                        (rand_codes(1, m, 16), rand_luts(1, m, 16)),
+                        (flat[1:].view(4099, m), rand_luts(9, m))):
         note("adc_scan_batch", compare(
-            f"adc_scan_batch N={codes.shape[0]} M={codes.shape[1]} Q={luts.shape[0]}",
+            f"adc_scan_batch N={codes.shape[0]} M={codes.shape[1]} K={luts.shape[2]} "
+            f"Q={luts.shape[0]}{' (unaligned rows)' if codes.data_ptr() % 16 else ''}",
             ops.adc_scan_batch(codes, luts), ref.adc_scan_batch_ref(codes, luts),
-            rtol=1e-6, atol=1e-6))
+            rtol=0.0, atol=0.0))
 
     # ---- times at the main path's shapes (kernel: the bare launch) ----
     rows = []
@@ -289,21 +361,28 @@ def parity_and_timing(n_base: int, n_query: int) -> dict:
     aout = torch.empty((n_query, n_base), device=dev)
     b_ms, b_by = bound(codes_full.numel() + 4 * luts_full.numel() + 4 * aout.numel(),
                        aout.numel() * m)
+    ms = cuda_ms(lambda: kadc.launch(codes_full, luts_full, aout), iters=5)
+    plain_ms = cuda_ms(lambda: ref.adc_scan_batch_ref(codes_full, luts_full),
+                       iters=2, warmup=1)
+    del aout
+    lib_ms, lib_err = library_time(codes_full, luts_full,
+                                   ref.adc_scan_batch_ref(codes_full, luts_full).T)
     rows.append(dict(
         name="adc_scan_batch", route="cuda", source="src/repro_torch/kernels/csrc/adc_scan.cu",
         replaces="src/repro/kernels/adc_scan.py:131",
         shape=f"codes ({n_base},{m}) u8 x luts ({n_query},{m},{k})",
-        max_abs_err=errs["adc_scan_batch"],
-        ms=cuda_ms(lambda: kadc.launch(codes_full, luts_full, aout), iters=5),
-        plain_ms=cuda_ms(lambda: ref.adc_scan_batch_ref(codes_full, luts_full),
-                         iters=2, warmup=1),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, library_call=None))
+        max_abs_err=errs["adc_scan_batch"], ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by,
+        smem_floor_ms=smem_floor_ms(n_query * n_base * m * 4),
+        library_ms=lib_ms, library_err=lib_err, library_call=LIBRARY_CALL))
     for row in rows:
         issue = (f" (back-to-back launches from the host: {row['issue_ms']:.4f} ms)"
                  if "issue_ms" in row else "")
+        floor = (f", shared-memory floor {row['smem_floor_ms']:.4f} ms"
+                 if "smem_floor_ms" in row else "")
         log(f"[time] {row['name']} {row['shape']}: kernel {row['ms']:.4f} ms{issue}, "
             f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']}, bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}){floor}")
     return {row["name"]: row for row in rows}
 
 
@@ -351,11 +430,19 @@ def fs4_parity_and_timing(n_base: int, n_query: int) -> dict:
     for mp in (0, 3):
         cases.append((packed7, torch.randint(0, 5004, (37, 72), generator=g, device=dev,
                                              dtype=torch.int32), rand_luts(37, 7), mp))
+    # rows three bytes off 8 (the byte-load path at M=16)
+    flat = torch.empty(5004 * 8 + 3, dtype=torch.uint8, device=dev)
+    flat[3:] = ops.pad_sentinel_row(rand_packed(5003, m)).reshape(-1)
+    for mp in (0, 5):
+        cases.append((flat[3:].view(5004, 8), torch.randint(
+            0, 5004, (37, 64), generator=g, device=dev, dtype=torch.int32),
+            rand_luts(37, m), mp))
     for codes, ids, luts, mp in cases:
         want = (ref.hop_adc_fs_acc(codes[:, :(mp + 1) // 2], ids, luts[:, :mp]) if mp
                 else ref.hop_adc_fs_acc(codes, ids, luts))
         exact("hop_adc_fs", f"hop_adc_fs N+1={codes.shape[0]} M={luts.shape[1]} "
-              f"Q={ids.shape[0]} R'={ids.shape[1]} m_prefix={mp}",
+              f"Q={ids.shape[0]} R'={ids.shape[1]} m_prefix={mp}"
+              f"{' (unaligned rows)' if codes.data_ptr() % 8 else ''}",
               khopfs.hop_adc_fs(codes, ids, luts, m_prefix=mp), want)
 
     # adc_scan_fs: the main path's 1000 x N_base, held against the plain
@@ -390,6 +477,7 @@ def fs4_parity_and_timing(n_base: int, n_query: int) -> dict:
         ms=graph_ms(lambda: khopfs.launch(packed_p, ids, luts, m, hout), iters=200),
         plain_ms=graph_ms(lambda: ref.hop_adc_fs_acc(packed_p, ids, luts), iters=50),
         issue_ms=cuda_ms(lambda: khopfs.launch(packed_p, ids, luts, m, hout), iters=200),
+        floor_ms=graph_ms(lambda: khopfs.launch_empty(*ids.shape), iters=200),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, library_call=None))
 
     aout = torch.empty((n_query, n_base), dtype=torch.int32, device=dev)
@@ -408,7 +496,8 @@ def fs4_parity_and_timing(n_base: int, n_query: int) -> dict:
         dequant_ms=cuda_ms(lambda: ops._dequant(aout, scale, bias, m), iters=5),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, library_call=None))
     for row in rows:
-        extra = (f" (back-to-back launches from the host: {row['issue_ms']:.4f} ms)"
+        extra = (f" (back-to-back launches from the host: {row['issue_ms']:.4f} ms; "
+                 f"an empty kernel on its grid: {row['floor_ms']:.4f} ms)"
                  if "issue_ms" in row else
                  f" (the dequant pass in ops: {row['dequant_ms']:.4f} ms)")
         log(f"[time] {row['name']} {row['shape']}: kernel {row['ms']:.4f} ms{extra}, "
@@ -520,7 +609,9 @@ def scorer_parity_and_timing(n_base: int, n_query: int) -> tuple[dict, dict]:
         ms=graph_ms(lambda: kadc.launch_query(codes_full, lut_full, sout), iters=100),
         plain_ms=cuda_ms(lambda: ref.adc_scan_ref(codes_full, lut_full), iters=10),
         issue_ms=cuda_ms(lambda: kadc.launch_query(codes_full, lut_full, sout), iters=100),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, library_call=None))
+        bound_ms=b_ms, bound_by=b_by, library_call=LIBRARY_CALL))
+    rows[-1]["library_ms"], rows[-1]["library_err"] = library_time(
+        codes_full, lut_full, ref.adc_scan_ref(codes_full, lut_full), graph=True)
 
     _, ids, luts = cases[0]
     rows_g = codes_p[ids.long()]
@@ -534,7 +625,9 @@ def scorer_parity_and_timing(n_base: int, n_query: int) -> tuple[dict, dict]:
         ms=graph_ms(lambda: khopg.launch(rows_g, luts, gout), iters=200),
         plain_ms=graph_ms(lambda: ref.hop_gather_ref(rows_g, luts), iters=50),
         issue_ms=cuda_ms(lambda: khopg.launch(rows_g, luts, gout), iters=200),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, library_call=None))
+        bound_ms=b_ms, bound_by=b_by, library_call=LIBRARY_CALL))
+    rows[-1]["library_ms"], rows[-1]["library_err"] = library_time(
+        rows_g, luts, ref.hop_gather_ref(rows_g, luts), graph=True)
     for row in rows:
         log(f"[time] {row['name']} {row['shape']}: kernel {row['ms']:.4f} ms (back-to-back "
             f"launches from the host: {row['issue_ms']:.4f} ms), plain "
@@ -720,7 +813,7 @@ def main_path(args) -> tuple:
 # phase 6: the fs4 path at full width, on the u8 path's dataset and graph
 # --------------------------------------------------------------------------
 
-def fs4_path(ds, gt, graph) -> dict:
+def fs4_path(ds, gt, graph, u8_model, u8_codes) -> dict:
     import torch
 
     from repro_torch.kernels import adc_scan_fs as kadcfs
@@ -744,37 +837,45 @@ def fs4_path(ds, gt, graph) -> dict:
     mem = InMemoryEngine(graph, packed, lut_fn)
     hyb = HybridEngine(graph, packed, lut_fn, vectors=ds.base)
     shd = ShardedEngine(packed, lut_fn, vectors=ds.base)
+    # the same scan engine over phase 5's u8 codes: adc_scan_batch's user path
+    u8_lut_fn = lambda q: base.build_lut(u8_model, q)
+    shd_u8 = ShardedEngine(u8_codes, u8_lut_fn, vectors=ds.base)
     res_m = timed_("search_inmemory", lambda: mem.search(ds.queries, k=10, h=32))
     res_h = timed_("search_hybrid", lambda: hyb.search(ds.queries, k=10, h=32))
     res_s = timed_("search_sharded", lambda: shd.search(ds.queries, k=10))
+    res_u8 = timed_("search_sharded_u8", lambda: shd_u8.search(ds.queries, k=10))
     qps = {"inmemory": measure_qps(lambda q: mem.search(q, k=10, h=32), ds.queries)[0],
            "hybrid": measure_qps(lambda q: hyb.search(q, k=10, h=32), ds.queries)[0],
-           "sharded": measure_qps(lambda q: shd.search(q, k=10), ds.queries)[0]}
+           "sharded": measure_qps(lambda q: shd.search(q, k=10), ds.queries)[0],
+           "sharded_u8": measure_qps(lambda q: shd_u8.search(q, k=10), ds.queries)[0]}
     busy = device_busy(lambda: mem.search(ds.queries, k=10, h=32),
                        nq / qps["inmemory"], label="fs4 InMemoryEngine")
     counts = ops.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
 
     rec = {name: recall_at_k(r.ids, gt, 10)
-           for name, r in (("inmemory", res_m), ("hybrid", res_h), ("sharded", res_s))}
+           for name, r in (("inmemory", res_m), ("hybrid", res_h), ("sharded", res_s),
+                           ("sharded_u8", res_u8))}
     stats = {name: {"hops": float(r.hops.float().mean()),
                     "n_dist": float(r.n_dist.float().mean()),
                     "rounds": float(r.rounds.float().mean())}
              for name, r in (("inmemory", res_m), ("hybrid", res_h), ("sharded", res_s))}
     log(f"[fs4] recall@10 inmemory {rec['inmemory']:.4f} hybrid {rec['hybrid']:.4f} "
-        f"sharded (scan + rerank of 40) {rec['sharded']:.4f}")
+        f"sharded (scan + rerank of 40) {rec['sharded']:.4f}; u8 sharded (phase 5's "
+        f"codes) {rec['sharded_u8']:.4f}")
     log(f"[fs4] inmemory hops {stats['inmemory']['hops']:.2f} n_dist "
         f"{stats['inmemory']['n_dist']:.2f} rounds {stats['inmemory']['rounds']:.2f}; "
         f"sharded n_dist {stats['sharded']['n_dist']:.0f}")
     log(f"[fs4] QPS (batch of {nq}): inmemory {qps['inmemory']:.1f} hybrid "
-        f"{qps['hybrid']:.1f} sharded {qps['sharded']:.1f}; peak device memory "
-        f"{peak_gb:.2f} GiB")
+        f"{qps['hybrid']:.1f} sharded {qps['sharded']:.1f} u8 sharded "
+        f"{qps['sharded_u8']:.1f}; peak device memory {peak_gb:.2f} GiB")
     log(f"[fs4] launches: {counts}")
-    for name in ("pq_pairwise", "hop_adc_fs", "adc_scan_fs"):
+    for name in ("pq_pairwise", "hop_adc_fs", "adc_scan_fs", "adc_scan_batch"):
         check(counts[name] > 0, f"kernel {name} was not launched on the fs4 path")
     for name, v in rec.items():
         check(math.isfinite(v), f"fs4 recall {name} is not finite")
-    for name, r in (("inmemory", res_m), ("hybrid", res_h), ("sharded", res_s)):
+    for name, r in (("inmemory", res_m), ("hybrid", res_h), ("sharded", res_s),
+                    ("sharded_u8", res_u8)):
         check(r.ids.shape == (nq, 10), f"fs4 {name} result shape")
         check(bool(torch.isfinite(r.dists).all()), f"fs4 {name} distances not finite")
 
@@ -827,6 +928,15 @@ def fs4_path(ds, gt, graph) -> dict:
         f"stable top-10 {scan['topk_lower_10_ms']:.3f} ms (torch.topk 40, unstable: "
         f"{scan['torch_topk_40_ms']:.3f} ms; full stable sort "
         f"{scan['stable_sort_ms']:.3f} ms)")
+    u8_luts = u8_lut_fn(ds.queries)
+    d = ops.adc_scan_batch(u8_codes, u8_luts)
+    scan["u8_adc_scan_batch_ms"] = cuda_ms(lambda: ops.adc_scan_batch(u8_codes, u8_luts),
+                                           iters=5)
+    scan["u8_topk_lower_40_ms"] = cuda_ms(lambda: topk_lower(d, 40), iters=3)
+    del d
+    log(f"[fs4] u8 scan engine at {nq} x {u8_codes.shape[0]}: adc_scan_batch "
+        f"{scan['u8_adc_scan_batch_ms']:.3f} ms, stable top-40 "
+        f"{scan['u8_topk_lower_40_ms']:.3f} ms")
     return dict(times=times, recall=rec, stats=stats, qps=qps, launches=counts,
                 peak_gib=peak_gb, search_busy=busy, same_top10_plain=same,
                 fs4_vs_f32_max_ratio=ratio, memory_bytes=mem_bytes, scan=scan)
@@ -1117,7 +1227,7 @@ def main() -> int:
     result, ds, gt, graph, pq_model, pq_codes = main_path(args)
     phases = {"main": result}
     t0 = time.perf_counter()
-    phases["fs4"] = fs4_path(ds, gt, graph)
+    phases["fs4"] = fs4_path(ds, gt, graph, pq_model, pq_codes)
     log(f"[fs4] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phases["gather"] = gather_path(ds, graph, pq_model, pq_codes)

@@ -3,7 +3,9 @@
 :func:`adc_scan_batch` replaces ``repro/kernels/adc_scan.py::adc_scan_batch``:
 bulk ADC of every code row against a batch of query LUTs, in f32 (the TPU
 kernel's bf16 one-hot GEMM is not carried over). It is bound by the (Q, N)
-output writes, 4 GB at 1000 × 1M.
+output writes, 4 GB at 1000 × 1M; the f32 shared-memory lookups set a floor
+near twice that. Its plan (query tile, grid, each block's share of the work)
+is computed here as the kernel computes it, so the CPU tests can check it.
 
 :func:`adc_scan` replaces ``repro/kernels/adc_scan.py::adc_scan``: one
 query's LUT against every code row, the retrieval scorer's scan
@@ -26,11 +28,17 @@ from repro_torch.kernels import _build
 launches = 0          # adc_scan_batch
 query_launches = 0    # adc_scan, one query
 
-# Shared memory a block spends on its query tile's LUTs: 64 KB keeps three
-# blocks resident per SM at M=16, K=256 (tile of 4 queries).
-LUT_TILE_BYTES = 64 * 1024
-MAX_QUERY_TILE = 8          # the kernel's register accumulators per thread
-MAX_QUERIES_PER_LAUNCH = 65535  # grid.y limit times the smallest tile
+# The batch kernel's plan, as csrc/adc_scan.cu computes it. A block holds
+# the LUTs of TQ queries in shared memory, interleaved by query
+# ([j][c][TQ]): TQ is the largest of 8, 4, 2, 1 whose tile fits, 8 at M=16,
+# K=256 (128 KB, one 768-thread block per SM). A code row is scored by
+# TQ / 4 lanes (1 below TQ = 4), each with 4 (or TQ) queries in registers.
+# The grid is persistent: the flat (query tile, row) space is cut into one
+# contiguous range per block, so a block stages a tile's LUT once per range.
+BATCH_THREADS = 768         # the kernel's kBatchThreads
+MAX_QUERY_TILE = 8
+MAX_TILE_BYTES = 227 * 1024  # shared memory one block may take on the H100
+MAX_LUT_BYTES = 200 * 1024   # one query's LUT, the most the wrapper takes
 
 _fn = None
 _query_fn = None
@@ -49,8 +57,38 @@ def _entry():
 
 
 def query_tile(m: int, k: int) -> int:
-    """Queries per block: as many LUTs as fit LUT_TILE_BYTES, 1..8."""
-    return max(1, min(MAX_QUERY_TILE, LUT_TILE_BYTES // (m * k * 4)))
+    """Queries per tile: the largest of 8, 4, 2, 1 whose (TQ, M, K) f32
+    LUTs fit MAX_TILE_BYTES (1 for any LUT the wrapper accepts)."""
+    tq = MAX_QUERY_TILE
+    while tq > 1 and tq * m * k * 4 > MAX_TILE_BYTES:
+        tq //= 2
+    return tq
+
+
+def rows_per_pass(tq: int) -> int:
+    """Code rows one block scores per pass: TQ / 4 lanes per row."""
+    return BATCH_THREADS // max(1, tq // 4)
+
+
+def grid_blocks(n: int, q: int, tq: int, resident: int) -> int:
+    """Blocks launched: all that stay resident on the card (``resident``,
+    SMs × blocks per SM), but no more than one per pass of rows or, for
+    short N, one per query tile."""
+    tiles = -(-q // tq)
+    need = max(-(-tiles * n // rows_per_pass(tq)), tiles)
+    return min(need, resident)
+
+
+def block_work(n: int, q: int, tq: int, blocks: int, b: int):
+    """Block ``b``'s share of the flat (tile, row) space as the kernel walks
+    it: (tile, first row, end row) segments, in order."""
+    work = -(-q // tq) * n
+    f, hi = work * b // blocks, work * (b + 1) // blocks
+    while f < hi:
+        tile, r0 = divmod(f, n)
+        r1 = min(n, r0 + hi - f)
+        yield tile, r0, r1
+        f += r1 - r0
 
 
 def launch(codes: torch.Tensor, luts: torch.Tensor,
@@ -69,9 +107,7 @@ def launch(codes: torch.Tensor, luts: torch.Tensor,
 
 
 def adc_scan_batch(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
-    """(N, M) uint8 codes × (Q, M, K) f32 LUTs → (Q, N) f32 on the card.
-    Query batches beyond the grid's reach go in chunks of
-    MAX_QUERIES_PER_LAUNCH, each written in place into the output."""
+    """(N, M) uint8 codes × (Q, M, K) f32 LUTs → (Q, N) f32 on the card."""
     for name, t, dtype, ndim in (("codes", codes, torch.uint8, 2),
                                  ("luts", luts, torch.float32, 3)):
         if t.device.type != "cuda" or t.device != codes.device:
@@ -87,13 +123,10 @@ def adc_scan_batch(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
                          f"match codes {tuple(codes.shape)}")
     if k > 256:
         raise ValueError("adc_scan_batch: uint8 codes address at most K=256 codewords")
-    if m * k * 4 > 200 * 1024:
+    if m * k * 4 > MAX_LUT_BYTES:
         raise ValueError("adc_scan_batch: one query's LUT must fit in shared memory")
     out = torch.empty((q, n), dtype=torch.float32, device=codes.device)
-    for q0 in range(0, q, MAX_QUERIES_PER_LAUNCH):
-        q1 = min(q, q0 + MAX_QUERIES_PER_LAUNCH)
-        launch(codes, luts[q0:q1], out[q0:q1])
-    return out
+    return launch(codes, luts, out)
 
 
 def _query_entry():

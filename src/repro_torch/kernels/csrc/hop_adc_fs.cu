@@ -14,50 +14,106 @@
 // rate. The TPU kernel kept the shard's packed codes resident in VMEM; here
 // they stay in device memory and only the gathered rows are read.
 //
-// Design: one block per query. The block stages the first m_eff rows of its
-// u8 LUT (16 bytes each) in shared memory, then one thread per frontier lane
-// loads its row's packed bytes, splits each byte into its two nibbles and
-// sums the m_eff lookups in int32. Staging the 256-byte LUT costs less than
-// building a paired (ceil(M/2), 256) table at R'=64, so the lookups stay
-// per nibble. An id outside [0, n_rows) is never read: its lane gets -1 (the
-// wrapper's asynchronous assert fails the stream on such ids).
+// Design: one thread per (query, frontier lane), kThreads to a block. When
+// R' is a multiple of 32, so that a warp serves one query (every beam round
+// of the main path), the rows are 8 bytes (M = 15 or 16) on an aligned base
+// and the LUTs are 16-byte aligned, each warp stages its own query's LUT:
+// lane j < m_eff first issues a 16-byte load of LUT row j, then every lane
+// its id, then its packed row as one 8-byte load; only then does the LUT
+// row go to shared memory and the warp meet its barrier, so the LUT's round
+// trip runs beside the id -> row chain instead of before it, and no warp
+// waits on another. A nibble is then one shared byte load. Otherwise (other
+// R' such as the entry call's 1, other M, sliced tensors) a thread reads its
+// row and the LUT entries byte by byte from global memory. An id outside
+// [0, n_rows) is never read: its lane gets -1 (the wrapper's asynchronous
+// assert fails the stream on such ids).
+//
+// What is left is latency: the launch, then two dependent round trips (the
+// id, then the row) and the store. hop_adc_fs_empty_launch puts an empty
+// kernel on the same grid, the floor no design of this kernel goes below.
+// On the H100, holding each thread's 16 LUT rows in registers (16 loads of
+// 16 bytes a thread), splitting a row over 2 or 4 lanes, one LUT copy per
+// block behind a block barrier, warps that span queries (index arithmetic
+// before the loads), and blocks of 64 to 512 threads were all slower.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kMaxThreads = 256;
+constexpr int kThreads = 128;
+
+// r % 32 == 0 (a warp serves one query), q * r < 2^31, 8-byte rows
+// (mb == 8) on an 8-byte-aligned base, 16-byte-aligned LUTs, m_eff <= 16
+__global__ void hop_adc_fs_warp_kernel(const uint8_t* __restrict__ codes,
+                                       int64_t n_rows,
+                                       const int32_t* __restrict__ ids, int q,
+                                       int r, const uint8_t* __restrict__ luts,
+                                       int m, int m_eff,
+                                       int32_t* __restrict__ out) {
+  __shared__ uint4 lut_s[kThreads / 32][16];  // each warp's query's LUT
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const bool live = t < q * r;
+  uint4* ls = lut_s[threadIdx.x >> 5];
+  uint4 lv = make_uint4(0, 0, 0, 0);
+  if (live && lane < m_eff)
+    lv = __ldg(reinterpret_cast<const uint4*>(luts) + static_cast<int64_t>(t / r) * m + lane);
+  bool bad = true;
+  uint2 c = make_uint2(0, 0);
+  if (live) {
+    const int64_t row = __ldg(ids + t);
+    bad = row < 0 || row >= n_rows;
+    if (!bad) c = __ldg(reinterpret_cast<const uint2*>(codes + row * 8));
+  }
+  if (lane < 16) ls[lane] = lv;
+  __syncwarp();
+  if (!live) return;
+  if (bad) {
+    out[t] = -1;
+    return;
+  }
+  const uint8_t* lq = reinterpret_cast<const uint8_t*>(ls);
+  int32_t acc = 0;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    if (j < m_eff) {
+      const uint32_t word = j < 8 ? c.x : c.y;
+      acc += lq[j * 16 + ((word >> (4 * (j & 7))) & 15u)];
+    }
+  }
+  out[t] = acc;
+}
 
 __global__ void hop_adc_fs_kernel(const uint8_t* __restrict__ codes,
                                   int64_t n_rows, int mb,
-                                  const int32_t* __restrict__ ids, int r,
+                                  const int32_t* __restrict__ ids, int q, int r,
                                   const uint8_t* __restrict__ luts, int m,
                                   int m_eff, int32_t* __restrict__ out) {
-  extern __shared__ uint8_t lut_s[];  // (m_eff, 16): this block's query
-  const int64_t q = blockIdx.x;
-  const uint8_t* lut_q = luts + q * m * 16;
-  for (int i = threadIdx.x; i < m_eff * 16; i += blockDim.x) lut_s[i] = lut_q[i];
-  __syncthreads();
-
-  const int32_t* ids_q = ids + q * r;
-  int32_t* out_q = out + q * r;
-  const int full = m_eff >> 1;  // bytes whose two nibbles both count
-  for (int i = threadIdx.x; i < r; i += blockDim.x) {
-    const int64_t row = ids_q[i];
-    if (row < 0 || row >= n_rows) {
-      out_q[i] = -1;
-      continue;
-    }
-    const uint8_t* c = codes + row * mb;
-    int32_t acc = 0;
-    for (int b = 0; b < full; ++b) {
-      const uint32_t byte = c[b];
-      acc += lut_s[(2 * b) * 16 + (byte & 15u)] + lut_s[(2 * b + 1) * 16 + (byte >> 4)];
-    }
-    if (m_eff & 1) acc += lut_s[(m_eff - 1) * 16 + (c[full] & 15u)];
-    out_q[i] = acc;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= static_cast<int64_t>(q) * r) return;
+  const int64_t row = __ldg(ids + t);
+  if (row < 0 || row >= n_rows) {
+    out[t] = -1;
+    return;
   }
+  const uint8_t* lut = luts + (t / r) * m * 16;
+  const uint8_t* c = codes + row * mb;
+  int32_t acc = 0;
+  const int full = m_eff >> 1;  // bytes whose two nibbles both count
+  for (int b = 0; b < full; ++b) {
+    const uint32_t byte = __ldg(c + b);
+    acc += __ldg(lut + (2 * b) * 16 + (byte & 15u)) +
+           __ldg(lut + (2 * b + 1) * 16 + (byte >> 4));
+  }
+  if (m_eff & 1) acc += __ldg(lut + (m_eff - 1) * 16 + (__ldg(c + full) & 15u));
+  out[t] = acc;
+}
+
+__global__ void empty_kernel() {}
+
+unsigned grid_for(int q, int r) {
+  return static_cast<unsigned>((static_cast<int64_t>(q) * r + kThreads - 1) / kThreads);
 }
 
 }  // namespace
@@ -69,19 +125,25 @@ int hop_adc_fs_launch(const void* codes, int64_t n_rows, int mb, const void* ids
                       void* out, void* stream) {
   if (m_eff < 1 || m_eff > m || (m_eff + 1) / 2 > mb)
     return static_cast<int>(cudaErrorInvalidValue);
-  int threads = (r + 31) / 32 * 32;
-  threads = threads > kMaxThreads ? kMaxThreads : threads;
-  const size_t smem = static_cast<size_t>(m_eff) * 16;
-  if (smem > 48 * 1024) {  // beyond the default limit: opt in (M > 3072)
-    cudaError_t err = cudaFuncSetAttribute(
-        hop_adc_fs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  hop_adc_fs_kernel<<<q, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(codes), n_rows, mb,
-      static_cast<const int32_t*>(ids), r, static_cast<const uint8_t*>(luts),
-      m, m_eff, static_cast<int32_t*>(out));
+  const bool warp = r % 32 == 0 && static_cast<int64_t>(q) * r < (int64_t{1} << 31) &&
+                    mb == 8 && m_eff <= 16 && reinterpret_cast<uintptr_t>(codes) % 8 == 0 &&
+                    reinterpret_cast<uintptr_t>(luts) % 16 == 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* c = static_cast<const uint8_t*>(codes);
+  const auto* i = static_cast<const int32_t*>(ids);
+  const auto* l = static_cast<const uint8_t*>(luts);
+  auto* o = static_cast<int32_t*>(out);
+  if (warp)
+    hop_adc_fs_warp_kernel<<<grid_for(q, r), kThreads, 0, s>>>(c, n_rows, i, q, r, l, m,
+                                                               m_eff, o);
+  else
+    hop_adc_fs_kernel<<<grid_for(q, r), kThreads, 0, s>>>(c, n_rows, mb, i, q, r, l, m,
+                                                          m_eff, o);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int hop_adc_fs_empty_launch(int q, int r, void* stream) {
+  empty_kernel<<<grid_for(q, r), kThreads, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,9 +2,13 @@
 
 Replaces ``repro/kernels/hop_adc.py::hop_adc_fs``, the Pallas kernel of
 every fs4 beam round: packed 4-bit codes, uint8 LUTs, exact int32 sums.
-One launch per round is short enough that launch latency sets its time.
-Callers go through :func:`repro_torch.kernels.ops.hop_adc_fs`, which fixes
-the dtypes, sends CPU tensors to the plain version and dequantizes.
+One launch per round is short enough that launch latency sets its time:
+one thread per (query, frontier lane) and, for frontiers of a multiple of
+32, one warp per query that loads its LUT beside its ids and rows, so a
+lane's critical path is its id and then its row. :func:`launch_empty` puts an empty kernel on the same grid, the
+floor of that latency. Callers go through
+:func:`repro_torch.kernels.ops.hop_adc_fs`, which fixes the dtypes, sends
+CPU tensors to the plain version and dequantizes.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from repro_torch.kernels import _build
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
 
 _fn = None
+_empty_fn = None
 
 
 def _entry():
@@ -31,6 +36,18 @@ def _entry():
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def launch_empty(q: int, r: int) -> None:
+    """An empty kernel on the grid :func:`launch` uses for (Q, R′) ids: the
+    latency floor for timing. Not counted in ``launches``."""
+    global _empty_fn
+    if _empty_fn is None:
+        fn = _build.load("hop_adc_fs").hop_adc_fs_empty_launch
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _empty_fn = fn
+    _build.check("hop_adc_fs", _empty_fn(q, r, _build.stream_handle(None)))
 
 
 def launch(packed: torch.Tensor, ids: torch.Tensor, luts_u8: torch.Tensor,

@@ -71,12 +71,34 @@ def test_hop_adc_kernel_rejects_out_of_range_ids(dev):
     assert out.returncode != 0 and "device-side assert" in out.stderr, out.stderr
 
 
-@pytest.mark.parametrize("m", [8, 16])
-def test_adc_scan_batch_kernel_matches_plain(dev, m):
-    codes, _, luts = _inputs(dev, n=4099, m=m, q=13)
-    torch.testing.assert_close(ops.adc_scan_batch(codes, luts),
-                               ref.adc_scan_batch_ref(codes, luts),
-                               rtol=1e-6, atol=1e-6)
+@pytest.mark.parametrize("n", [1, 4099])
+@pytest.mark.parametrize("q", [1, 13, 37])
+@pytest.mark.parametrize("m", [7, 8, 16, 32])
+@pytest.mark.parametrize("k", [16, 100, 256])
+def test_adc_scan_batch_kernel_matches_plain(dev, k, m, q, n):
+    """Bit for bit (j-order f32 sums): K < 256, odd M (byte loads), M = 32
+    (a 4-query tile), Q off every query tile, a single row."""
+    codes, _, luts = _inputs(dev, n=n - 1, m=m, k=k, q=q, r=8, seed=k * m + q + n)
+    got = ops.adc_scan_batch(codes, luts)
+    assert got.shape == (q, n)
+    torch.testing.assert_close(got, ref.adc_scan_batch_ref(codes, luts), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("m", [16, 32])
+def test_adc_scan_batch_kernel_unaligned_rows(dev, m):
+    """Rows that do not start on 16 bytes (a view one byte into its buffer,
+    and a row slice of 8-byte rows) take the byte-load path, still exact."""
+    rng = np.random.default_rng(m)
+    codes = torch.from_numpy(rng.integers(0, 256, (2999, m)).astype(np.uint8)).to(dev)
+    flat = torch.empty(codes.numel() + 1, dtype=torch.uint8, device=dev)
+    flat[1:] = codes.reshape(-1)
+    view = flat[1:].view(codes.shape)
+    rows8 = flat[1:].view(-1, 8)[3:]
+    luts = torch.rand((11, m, 256), device=dev)
+    for c, lt in ((view, luts), (rows8, luts[:, :8].contiguous())):
+        assert c.data_ptr() % 16 and c.is_contiguous()
+        torch.testing.assert_close(ops.adc_scan_batch(c, lt),
+                                   ref.adc_scan_batch_ref(c, lt), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("dsub", [8, 5])
@@ -114,6 +136,33 @@ def test_hop_adc_fs_kernel_matches_plain(dev, r, m, m_prefix):
     want = ref.hop_adc_fs_acc(packed[:, :(mp + 1) // 2].contiguous(), ids, luts[:, :mp])
     assert got.dtype == torch.int32
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("r", [1, 64, 256])
+def test_hop_adc_fs_kernel_unaligned_rows(dev, r):
+    """Packed rows and LUTs that do not start on 8 / 16 bytes take the
+    byte-load path: still exact, -1 on no in-range id."""
+    n, q = 5003, 37
+    packed, luts, rng = _fs_inputs(dev, n, 16, q, seed=r)
+    flat = torch.empty(packed.numel() + 3, dtype=torch.uint8, device=dev)
+    flat[3:] = packed.reshape(-1)
+    view = flat[3:].view(packed.shape)
+    lflat = torch.empty(luts.numel() + 1, dtype=torch.uint8, device=dev)
+    lflat[1:] = luts.reshape(-1)
+    lview = lflat[1:].view(luts.shape)
+    assert view.data_ptr() % 8 and lview.data_ptr() % 16
+    ids = torch.from_numpy(rng.integers(0, n + 1, (q, r)).astype(np.int32)).to(dev)
+    for p, lt in ((view, luts), (packed, lview), (view, lview)):
+        for mp in (0, 5):
+            got = khopfs.hop_adc_fs(p, ids, lt, m_prefix=mp)
+            mm = mp or 16
+            want = ref.hop_adc_fs_acc(p[:, :(mm + 1) // 2].contiguous(), ids, lt[:, :mm])
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_hop_adc_fs_empty_kernel_launches(dev):
+    khopfs.launch_empty(1000, 64)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("n,m,q", [(4099, 16, 13), (10007, 7, 8), (3001, 9, 1),

@@ -4,6 +4,9 @@ the port runs on CPU tensors, fed the same numpy inputs as the JAX kernels
 are held against these plain versions on the card (``chip_smoke.py`` and
 ``tests/test_torch_cuda.py``)."""
 
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +22,16 @@ from repro_torch.kernels import hop_gather as t_hopg
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import pq_pairwise as t_pqp
 from repro_torch.kernels import ref as tref
+
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def T(a):
@@ -215,3 +228,63 @@ def test_launch_counts_reset_and_cpu_path_launches_nothing():
                                     "adc_scan_batch": 0, "hop_adc_fs": 0,
                                     "adc_scan_fs": 0, "adc_scan": 0,
                                     "hop_gather": 0}
+
+
+@pytest.mark.parametrize("m,k", [(16, 256), (7, 100), (32, 256), (200, 256),
+                                 (1, 1), (51200, 1), (3, 256)])
+def test_adc_scan_batch_query_tile_fits(m, k):
+    tq = t_adc.query_tile(m, k)
+    assert tq in (1, 2, 4, 8)
+    assert tq * m * k * 4 <= t_adc.MAX_TILE_BYTES
+    if tq < t_adc.MAX_QUERY_TILE:   # the next tile up would not fit
+        assert 2 * tq * m * k * 4 > t_adc.MAX_TILE_BYTES
+    if (m, k) == (16, 256):
+        assert tq == 8 and t_adc.rows_per_pass(tq) == 384
+
+
+def test_adc_scan_batch_query_tile_fits_every_accepted_shape():
+    """Every (M, K) the wrapper accepts (K <= 256, one LUT <= 200 KB) gets a
+    tile of at least one query within the 227 KB a block may take."""
+    for k in range(1, 257):
+        for m in range(1, t_adc.MAX_LUT_BYTES // (4 * k) + 1):
+            tq = t_adc.query_tile(m, k)
+            assert tq >= 1 and tq * m * k * 4 <= 227 * 1024, (m, k)
+
+
+@pytest.mark.parametrize("n,q,tq,resident", [
+    (1_000_000, 1000, 8, 132), (4099, 13, 8, 132), (1, 37, 8, 132),
+    (4099, 37, 4, 264), (5, 3, 2, 528), (10007, 1, 1, 528),
+    (777, 1000, 8, 7), (3, 1, 8, 132)])
+def test_adc_scan_batch_work_covers_each_output_once(n, q, tq, resident):
+    """The blocks' ranges of the flat (tile, row) space cover every (query,
+    row) exactly once, ragged row and query edges included."""
+    blocks = t_adc.grid_blocks(n, q, tq, resident)
+    assert 1 <= blocks <= resident
+    tiles = -(-q // tq)
+    hits = np.zeros((q, n), dtype=np.int32) if q * n <= 10**7 else None
+    rows_done = 0
+    for b in range(blocks):
+        for tile, r0, r1 in t_adc.block_work(n, q, tq, blocks, b):
+            assert 0 <= tile < tiles and 0 <= r0 < r1 <= n
+            rows_done += r1 - r0
+            if hits is not None:
+                hits[tile * tq: tile * tq + tq, r0:r1] += 1
+    assert rows_done == tiles * n
+    if hits is not None:
+        assert (hits == 1).all()
+
+
+def test_embedding_bag_yardsticks_equal_plain_versions():
+    """The library column times one F.embedding_bag call per row; on CPU
+    tensors each equals the kernel's plain version exactly."""
+    lut_bag = _chip_smoke().lut_bag
+    bag = lambda idx, w: torch.nn.functional.embedding_bag(idx, w, mode="sum")
+    rng = np.random.default_rng(21)
+    codes = T(rng.integers(0, 256, (5000, 16)).astype(np.uint8))
+    luts = T((rng.random((7, 16, 256)) * 20.0).astype(np.float32))
+    assert torch.equal(bag(*lut_bag(codes, luts)).T, tref.adc_scan_batch_ref(codes, luts))
+    assert torch.equal(bag(*lut_bag(codes, luts[3]))[:, 0],
+                       tref.adc_scan_ref(codes, luts[3]))
+    rows = T(rng.integers(0, 256, (7, 64, 16)).astype(np.uint8))
+    assert torch.equal(bag(*lut_bag(rows, luts)).reshape(7, 64),
+                       tref.hop_gather_ref(rows, luts))
