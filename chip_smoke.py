@@ -56,9 +56,27 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    quantizers' reconstruction MSE;
 9. retrieval: ``models.recsys.score_candidates_adc`` for 100 single queries
    over the 1M RPQ codes, its top-100 against the plain scan's, and its
-   time per query beside ``score_candidates_exact``.
+   time per query beside ``score_candidates_exact``;
+10. adaptive: on phase 5's graph, u8 codes and queries and phase 6's fs4
+   codes, the five rows of ``examples/adaptive_routing.py`` (baseline,
+   ``entries=8``, ``prune_eps=0.2, m_prefix=2``, seeded + pruned, + ``expand=4``)
+   through ``InMemoryEngine`` and ``HybridEngine`` (h=32, k=10) in both
+   layouts, a ``max_rounds`` sweep, ``calibrate_max_rounds`` for a deadline
+   and ``DegradationPolicy`` levels 0–4 on ``HybridEngine``; checks: (a) the
+   default knobs equal phase 5's search bit for bit, (b) every row's
+   kernel-routed top-10 equals its plain-routed one on ≥ 99% of queries, (c)
+   budgets bind per lane and a lane not flagged ``truncated`` is converged,
+   (d) the ``m_prefix=2`` distance of both kernels is ≤ the full one on a
+   sampled frontier, (e) pruning cuts ``n_dist``;
+11. cli: in a temporary directory, ``python -m repro_torch.launch.train``
+   on the ``sift`` spec's registered 100k base at M=16, K=256, R=64, L=128
+   (200 steps, a checkpoint every 50, a crash injected at step 120 and a
+   supervised restart), then ``python -m repro_torch.launch.serve`` for the
+   ``memory``, ``hybrid`` (``--entries 8 --prune-eps 0.2``, a deadline from
+   the memory run, ``--degrade-level 2``, ``--chaos io=0.05``) and
+   ``sharded`` scenarios; each subprocess reports its kernel launches.
 
-Phases 5–9 each read every kernel's launch count around their own run.
+Phases 5–11 each read every kernel's launch count around their own run.
 The last three lines are the kernels JSON (each kernel's ``launches`` summed
 over those counted runs), the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -72,8 +90,10 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -806,14 +826,14 @@ def main_path(args) -> tuple:
                 "hybrid": qps_h}, launches=counts, peak_gib=peak_gb, search_busy=busy,
                 same_top10_plain=same, mean_degree=deg, graph_exact_recall=graph_rec,
                 vamana_batch=args.vamana_batch,
-                n_base=int(ds.base.shape[0])), ds, gt, graph, model, codes
+                n_base=int(ds.base.shape[0])), ds, gt, graph, model, codes, res_m
 
 
 # --------------------------------------------------------------------------
 # phase 6: the fs4 path at full width, on the u8 path's dataset and graph
 # --------------------------------------------------------------------------
 
-def fs4_path(ds, gt, graph, u8_model, u8_codes) -> dict:
+def fs4_path(ds, gt, graph, u8_model, u8_codes) -> tuple:
     import torch
 
     from repro_torch.kernels import adc_scan_fs as kadcfs
@@ -939,7 +959,8 @@ def fs4_path(ds, gt, graph, u8_model, u8_codes) -> dict:
         f"{scan['u8_topk_lower_40_ms']:.3f} ms")
     return dict(times=times, recall=rec, stats=stats, qps=qps, launches=counts,
                 peak_gib=peak_gb, search_busy=busy, same_top10_plain=same,
-                fs4_vs_f32_max_ratio=ratio, memory_bytes=mem_bytes, scan=scan)
+                fs4_vs_f32_max_ratio=ratio, memory_bytes=mem_bytes,
+                scan=scan), model, packed
 
 
 # --------------------------------------------------------------------------
@@ -1176,6 +1197,332 @@ def retrieval_path(ds, cfg, params, codes, n_queries: int = 100, k: int = 100) -
                 launches=counts)
 
 
+# --------------------------------------------------------------------------
+# phase 10: adaptive routing, budgets and the degradation ladder at 1M
+# --------------------------------------------------------------------------
+
+# the five rows of examples/adaptive_routing.py:84-89
+ADAPTIVE_ROWS = (("baseline", {}),
+                 ("entries=8", {"entries": 8}),
+                 ("prune eps=0.2 m'=2", {"prune_eps": 0.2, "m_prefix": 2}),
+                 ("seeded+pruned", {"entries": 8, "prune_eps": 0.2, "m_prefix": 2}),
+                 ("seeded+pruned+E=4", {"entries": 8, "prune_eps": 0.2, "m_prefix": 2,
+                                        "expand": 4}))
+ROUND_BUDGETS = (2, 4, 8, 16, 32, 64)
+
+
+def plain_hop_adc(codes, ids, luts, *, m_prefix=0):
+    """``ops.hop_adc`` with the plain version on CUDA tensors."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    m = codes.shape[1]
+    mp = m_prefix if 0 < m_prefix < m else 0
+    ids = ids.to(torch.int32)
+    if mp:
+        return ref.hop_adc_ref(codes[:, :mp], ids, luts[:, :mp].float())
+    return ref.hop_adc_ref(codes, ids, luts.float())
+
+
+def plain_hop_adc_fs(packed, ids, luts_u8, scale, bias, *, m_prefix=0):
+    """``ops.hop_adc_fs`` with the plain version on CUDA tensors."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    m = luts_u8.shape[1]
+    mp = m_prefix if 0 < m_prefix < m else 0
+    m_eff = mp or m
+    acc = ref.hop_adc_fs_acc(packed[:, :(m_eff + 1) // 2], ids.to(torch.int32),
+                             luts_u8[:, :m_eff])
+    return ref.dequant(acc, scale, bias, m_eff)
+
+
+class plain_routing:
+    """Within the block, every beam round and seed probe of the engines
+    scores through the plain versions (on CUDA tensors) instead of the
+    kernels: ``ops.hop_adc`` and ``ops.hop_adc_fs`` are swapped, and both
+    ``search/beam.py`` and ``search/seed.py`` call them through ``ops``."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self._saved = ops.hop_adc, ops.hop_adc_fs
+        ops.hop_adc, ops.hop_adc_fs = plain_hop_adc, plain_hop_adc_fs
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+
+        ops.hop_adc, ops.hop_adc_fs = self._saved
+        return False
+
+
+def adaptive_path(ds, gt, graph, u8_model, u8_codes, res_main, fs4_model, fs4_packed) -> dict:
+    import torch
+
+    from repro_torch.kernels import hop_adc_fs as khopfs
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import calibrate_max_rounds
+    from repro_torch.pq import base
+    from repro_torch.search.degrade import DegradationPolicy
+    from repro_torch.search.engine import HybridEngine, InMemoryEngine
+    from repro_torch.search.metrics import measure_qps, recall_at_k
+
+    qs = ds.queries
+    nq = qs.shape[0]
+    layouts = {"u8": (u8_codes, lambda q: base.build_lut(u8_model, q)),
+               "fs4": (fs4_packed, lambda q: base.build_lut(fs4_model, q, quantize=True))}
+    engines = {(lay, name): cls(graph, codes, lut_fn, device=qs.device, **extra)
+               for lay, (codes, lut_fn) in layouts.items()
+               for name, cls, extra in (("inmemory", InMemoryEngine, {}),
+                                        ("hybrid", HybridEngine, {"vectors": ds.base}))}
+
+    def row_stats(res, qps):
+        return {"recall": recall_at_k(res.ids, gt, 10), "qps": qps,
+                "rounds_mean": float(res.rounds.float().mean()),
+                "rounds_max": int(res.rounds.max()),
+                "n_dist": float(res.n_dist.float().mean()),
+                "truncated": float(res.truncated.float().mean())}
+
+    ops.reset_launch_counts()
+    # the seed index of each layout, built once and timed (the engines of a
+    # layout share one: the index depends on the codes only)
+    seed_s = {}
+    for lay in layouts:
+        mem = engines[(lay, "inmemory")]
+        luts = mem.lut_fn(qs[:1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ix = mem._seed_index(luts)
+        torch.cuda.synchronize()
+        seed_s[lay] = time.perf_counter() - t0
+        engines[(lay, "hybrid")]._seedix = ix
+        occupied = int((ix.table >= 0).any(dim=1).sum())
+        log(f"[adaptive] {lay} seed index: {seed_s[lay] * 1e3:.1f} ms; "
+            f"{ix.table.shape[0]} buckets on {ix.m_hash} sub-code(s) (K={ix.k}), "
+            f"{occupied} occupied, {ix.n_candidates} candidates per query")
+
+    rows, results, launch_rows = {}, {}, {}
+    for (lay, name), eng in engines.items():
+        for tag, kw in ADAPTIVE_ROWS:
+            before = ops.launch_counts()
+            res = eng.search(qs, k=10, h=32, **kw)
+            after = ops.launch_counts()
+            launch_rows[(lay, name, tag)] = {k: after[k] - before[k] for k in after
+                                             if after[k] - before[k]}
+            qps, _ = measure_qps(lambda q: eng.search(q, k=10, h=32, **kw), qs)
+            results[(lay, name, tag)] = res
+            rows[(lay, name, tag)] = row_stats(res, qps)
+            r = rows[(lay, name, tag)]
+            log(f"[adaptive] {lay} {name:8s} {tag:20s} recall@10 {r['recall']:.4f} "
+                f"QPS {qps:9.1f} rounds {r['rounds_mean']:6.2f} (max {r['rounds_max']:3d}) "
+                f"n_dist {r['n_dist']:8.1f} truncated {r['truncated']:.3f} "
+                f"launches {launch_rows[(lay, name, tag)]}")
+
+    # budgets on the u8 InMemoryEngine: a max_rounds sweep
+    mem = engines[("u8", "inmemory")]
+    full = results[("u8", "inmemory", "baseline")]
+    sweep = {}
+    for r_max in ROUND_BUDGETS:
+        qps, res = measure_qps(lambda q: mem.search(q, k=10, h=32, max_rounds=r_max), qs,
+                               repeats=1)
+        sweep[r_max] = (res, row_stats(res, qps))
+        st = sweep[r_max][1]
+        log(f"[adaptive] u8 inmemory max_rounds={r_max:3d}: recall@10 {st['recall']:.4f} "
+            f"QPS {qps:9.1f} rounds max {st['rounds_max']} truncated {st['truncated']:.3f}")
+    # a deadline of half the baseline hybrid batch, through calibrate_max_rounds
+    hyb = engines[("u8", "hybrid")]
+    batch_s = nq / rows[("u8", "hybrid", "baseline")]["qps"]
+    deadline_s = 0.5 * batch_s
+    mr = calibrate_max_rounds(hyb, qs, deadline_s, k=10, h=32)
+    qps_d, res_d = measure_qps(lambda q: hyb.search(q, k=10, h=32, max_rounds=mr), qs)
+    deadline = dict(deadline_ms=deadline_s * 1e3, max_rounds=mr, batch_ms=nq / qps_d * 1e3,
+                    **row_stats(res_d, qps_d))
+    log(f"[adaptive] u8 hybrid deadline {deadline_s * 1e3:.2f} ms -> max_rounds={mr}: "
+        f"batch {deadline['batch_ms']:.2f} ms, recall@10 {deadline['recall']:.4f}, "
+        f"truncated {deadline['truncated']:.3f}")
+    # the degradation ladder, levels 0-4, on HybridEngine over the full config
+    policy, ladder = DegradationPolicy(), {}
+    full_cfg = dict(h=32, expand=4, entries=8, prune_eps=0.2, m_prefix=2)
+    for level in range(5):
+        kw = policy.apply(hyb, level, **full_cfg)
+        qps, res = measure_qps(lambda q: hyb.search(q, k=10, **kw), qs)
+        ladder[level] = dict(kwargs={k: v for k, v in kw.items()}, **row_stats(res, qps))
+        log(f"[adaptive] ladder L{level} {kw}: recall@10 {ladder[level]['recall']:.4f} "
+            f"QPS {qps:9.1f} rounds {ladder[level]['rounds_mean']:.2f} n_dist "
+            f"{ladder[level]['n_dist']:.1f}")
+    counts = ops.launch_counts()
+    log(f"[adaptive] launches: {counts}")
+    for name in ("pq_pairwise", "hop_adc", "hop_adc_fs"):
+        check(counts[name] > 0, f"kernel {name} was not launched on the adaptive path")
+
+    # ---- checks (their launches are not counted) ----
+    # (a) the default knobs are phase 5's search, bit for bit
+    for res in (full, mem.search(qs, k=10, h=32, entries=1, prune_eps=0.0)):
+        same = {f: bool(torch.equal(getattr(res, f), getattr(res_main, f)))
+                for f in ("ids", "dists", "hops", "n_dist", "rounds", "truncated")}
+        check(all(same.values()), f"(a) default knobs differ from phase 5's search: {same}")
+    log("[adaptive] (a) entries=1, prune_eps=0, no budget: bit-equal to phase 5's search")
+    # (b) kernel- vs plain-routed top-10, every row
+    same_top = {}
+    with plain_routing():
+        for (lay, name, tag), res in results.items():
+            kw = dict(ADAPTIVE_ROWS)[tag]
+            res_p = engines[(lay, name)].search(qs, k=10, h=32, **kw)
+            same_top[(lay, name, tag)] = float((res_p.ids == res.ids).all(dim=1).float().mean())
+    worst = min(same_top.values())
+    log(f"[adaptive] (b) top-10 identical with plain routing: min {worst:.4f} over "
+        f"{len(same_top)} rows")
+    for key, v in same_top.items():
+        check(v >= 0.99, f"(b) {key}: kernel- and plain-routed top-10 agree on {v:.4f}")
+    # (c) budgets bind per lane; an unflagged lane is converged
+    for r_max, (res, _) in sweep.items():
+        check(int(res.rounds.max()) <= r_max, f"(c) rounds exceed max_rounds={r_max}")
+        done = ~res.truncated
+        check(bool((res.rounds[res.truncated] == r_max).all()),
+              f"(c) a truncated lane stopped before max_rounds={r_max}")
+        for f in ("ids", "hops", "rounds", "n_dist"):
+            check(bool(torch.equal(getattr(res, f)[done], getattr(full, f)[done])),
+                  f"(c) an unflagged lane under max_rounds={r_max} is not converged ({f})")
+    check(not bool(full.truncated.any()), "(c) the unbudgeted search truncated")
+    log(f"[adaptive] (c) max_rounds {ROUND_BUDGETS}: rounds <= budget, truncated lanes "
+        f"stop at it, every other lane equals the unbudgeted search")
+    # (d) the prefix bound of both kernels on a sampled frontier
+    g = torch.Generator(device=qs.device).manual_seed(99)
+    src = torch.randint(0, graph.n, (nq,), generator=g, device=qs.device)
+    ids = graph.neighbors[src].to(torch.int32)                    # (Q, R) frontier
+    luts = layouts["u8"][1](qs)
+    codes_p = engines[("u8", "inmemory")]._codes_p
+    lb, fu = ops.hop_adc(codes_p, ids, luts, m_prefix=2), ops.hop_adc(codes_p, ids, luts)
+    check(bool((lb <= fu).all()), "(d) hop_adc m_prefix=2 exceeds the full distance")
+    ql = layouts["fs4"][1](qs)
+    packed_p = engines[("fs4", "inmemory")]._codes_p
+    lb_i = khopfs.hop_adc_fs(packed_p, ids, ql.lut, m_prefix=2)
+    fu_i = khopfs.hop_adc_fs(packed_p, ids, ql.lut)
+    check(bool((lb_i <= fu_i).all()), "(d) hop_adc_fs m_prefix=2 exceeds the full int32 sum")
+    log(f"[adaptive] (d) prefix <= full on {tuple(ids.shape)} frontier ids: hop_adc "
+        f"(mean ratio {float((lb / fu.clamp(min=1e-30)).mean()):.3f}), hop_adc_fs int32")
+    # (e) pruning cuts n_dist
+    for lay in layouts:
+        for name in ("inmemory", "hybrid"):
+            a = rows[(lay, name, "baseline")]["n_dist"]
+            b = rows[(lay, name, "prune eps=0.2 m'=2")]["n_dist"]
+            check(b < a, f"(e) {lay} {name}: pruned n_dist {b:.1f} not below {a:.1f}")
+    log("[adaptive] (e) pruned n_dist below unpruned in every layout and engine")
+    for key, r in rows.items():
+        check(math.isfinite(r["recall"]) and r["qps"] > 0, f"{key}: bad recall or QPS")
+
+    key = lambda k: " / ".join(k)
+    return dict(seed_index_ms={k: v * 1e3 for k, v in seed_s.items()},
+                rows={key(k): v for k, v in rows.items()},
+                row_launches={key(k): v for k, v in launch_rows.items()},
+                same_top10_plain={key(k): v for k, v in same_top.items()},
+                sweep={r: st for r, (_, st) in sweep.items()}, deadline=deadline,
+                ladder=ladder, launches=counts)
+
+
+# --------------------------------------------------------------------------
+# phase 11: the train -> checkpoint -> serve command lines
+# --------------------------------------------------------------------------
+
+# Runs ``python -m <module> <args>`` with the repository's src on the path
+# (set here, not through PYTHONPATH: src/sitecustomize.py would import the
+# JAX package at startup) and prints the process's kernel launch counts last.
+CLI_WRAPPER = """import atexit, json, runpy, sys
+sys.path.insert(0, sys.argv[1])
+from repro_torch.kernels import ops
+atexit.register(lambda: print('[launches] ' + json.dumps(ops.launch_counts()), flush=True))
+module = sys.argv[2]
+sys.argv = [module] + sys.argv[3:]
+runpy.run_module(module, run_name='__main__', alter_sys=True)
+"""
+SERVE_LINE = re.compile(
+    r"^\[serve\] (?P<scenario>[\w-]+): recall@10=(?P<recall>[\d.]+) qps=(?P<qps>[\d.]+) "
+    r"hops=(?P<hops>[\d.]+) rounds=(?P<rounds>[\d.]+) truncated=(?P<truncated>[\d.]+) "
+    r"(?P<degraded>DEGRADED )?resident=(?P<resident_mb>[\d.]+)MB$", re.M)
+CLI_WIDTHS = ["--graph-r", "64", "--graph-l", "128"]
+TRAIN_ARGS = ["--dataset", "sift", "--m", "16", "--k", "256", *CLI_WIDTHS,
+              "--steps", "200", "--checkpoint-every", "50", "--fail-at-step", "120"]
+
+
+def run_cli(tag: str, module: str, args: list, timeout: float) -> tuple[str, dict, float]:
+    """One driver as a subprocess; fails the run on a non-zero exit.
+    Returns its stdout, its kernel launches and its wall seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CLI_WRAPPER, SRC, module, *args],
+                          capture_output=True, text=True, timeout=timeout, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        if not line.startswith("[rpq]") and not line.startswith("[launches]"):
+            log(f"[cli] {tag} | {line}")
+    if proc.returncode:
+        log(proc.stderr[-4000:])
+    check(proc.returncode == 0, f"{tag}: exit code {proc.returncode}")
+    found = re.findall(r"^\[launches\] (\{.*\})$", proc.stdout, re.M)
+    check(len(found) == 1, f"{tag}: no launch counts")
+    log(f"[cli] {tag}: {wall:.1f} s, launches {found[0]}")
+    return proc.stdout, json.loads(found[0]), wall
+
+
+def cli_path() -> dict:
+    launches: dict[str, int] = {}
+    walls, serve = {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory(prefix="rpq_cli_") as d:
+        out, counts, walls["train"] = run_cli(
+            "train", "repro_torch.launch.train", TRAIN_ARGS + ["--ckpt-dir", d], 900)
+        add(counts)
+        check("[supervise] restart 1" in out, "train: no supervised restart")
+        check("[train] resumed from step 100" in out, "train: did not resume from step 100")
+        check("[train] final recall@10=" in out, "train: no final evaluation")
+        serve_args = ["--ckpt-dir", d, *CLI_WIDTHS]
+        out, counts, walls["serve_memory"] = run_cli(
+            "serve memory", "repro_torch.launch.serve",
+            serve_args + ["--scenario", "memory"], 600)
+        add(counts)
+        serve["memory"] = parse_serve(out, "memory")
+        # the hybrid run's deadline: half the memory run's batch of 1000
+        deadline_ms = 0.5 * 1000.0 / serve["memory"]["qps"] * 1e3
+        hyb_args = ["--scenario", "hybrid", "--entries", "8", "--prune-eps", "0.2",
+                    "--deadline-ms", f"{deadline_ms:.3f}", "--degrade-level", "2",
+                    "--chaos", "io=0.05"]
+        out, counts, walls["serve_hybrid"] = run_cli(
+            "serve hybrid", "repro_torch.launch.serve", serve_args + hyb_args, 600)
+        add(counts)
+        serve["hybrid"] = parse_serve(out, "hybrid")
+        serve["hybrid"]["deadline_ms"] = deadline_ms
+        check("max_rounds=" in out, "serve hybrid: no deadline budget")
+        out, counts, walls["serve_sharded"] = run_cli(
+            "serve sharded", "repro_torch.launch.serve",
+            serve_args + ["--scenario", "sharded"], 600)
+        add(counts)
+        serve["sharded"] = parse_serve(out, "sharded")
+    for name in ("pq_pairwise", "hop_adc", "adc_scan_batch"):
+        check(launches.get(name, 0) > 0, f"kernel {name} was not launched by the CLIs")
+    full = {k: launches.get(k, 0) for k in ("pq_pairwise", "hop_adc", "adc_scan_batch",
+                                            "hop_adc_fs", "adc_scan_fs", "adc_scan",
+                                            "hop_gather")}
+    log(f"[cli] launches: {full}; wall {walls}")
+    return dict(walls=walls, serve=serve, launches=full)
+
+
+def parse_serve(out: str, scenario: str) -> dict:
+    found = [m.groupdict() for m in SERVE_LINE.finditer(out)]
+    check(len(found) == 1 and found[0]["scenario"] == scenario,
+          f"serve {scenario}: no parseable [serve] line")
+    row = {k: float(v) for k, v in found[0].items() if k not in ("scenario", "degraded")}
+    row["degraded"] = bool(found[0]["degraded"])
+    for k in ("recall", "qps", "resident_mb"):
+        check(math.isfinite(row[k]), f"serve {scenario}: {k} not finite")
+    check(row["qps"] > 0, f"serve {scenario}: qps not positive")
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=float, default=10.0,
@@ -1224,10 +1571,10 @@ def main() -> int:
     t0 = time.perf_counter()
     small_reference()
     log(f"[small] done in {time.perf_counter() - t0:.1f} s")
-    result, ds, gt, graph, pq_model, pq_codes = main_path(args)
+    result, ds, gt, graph, pq_model, pq_codes, res_main = main_path(args)
     phases = {"main": result}
     t0 = time.perf_counter()
-    phases["fs4"] = fs4_path(ds, gt, graph, pq_model, pq_codes)
+    phases["fs4"], fs4_model, fs4_packed = fs4_path(ds, gt, graph, pq_model, pq_codes)
     log(f"[fs4] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phases["gather"] = gather_path(ds, graph, pq_model, pq_codes)
@@ -1238,6 +1585,16 @@ def main() -> int:
     t0 = time.perf_counter()
     phases["retrieval"] = retrieval_path(ds, cfg, params, rpq_codes)
     log(f"[retrieval] done in {time.perf_counter() - t0:.1f} s")
+    del params, rpq_codes
+    t0 = time.perf_counter()
+    phases["adaptive"] = adaptive_path(ds, gt, graph, pq_model, pq_codes, res_main,
+                                       fs4_model, fs4_packed)
+    log(f"[adaptive] done in {time.perf_counter() - t0:.1f} s")
+    del ds, gt, graph, pq_codes, fs4_packed, res_main
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phases["cli"] = cli_path()
+    log(f"[cli] done in {time.perf_counter() - t0:.1f} s")
     for name, row in kernels.items():
         row["launches"] = sum(p["launches"][name] for p in phases.values())
     log(f"[total] {time.perf_counter() - t_start:.1f} s")

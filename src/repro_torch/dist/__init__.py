@@ -1,3 +1,6 @@
-from repro_torch.dist.fault import MergedTopK, partial_merge
+from repro_torch.dist.fault import (ChaosPlan, FailureInjector, InjectedFailure,
+                                    MergedTopK, QuorumDecision, partial_merge,
+                                    resolve_quorum, supervise)
 
-__all__ = ["MergedTopK", "partial_merge"]
+__all__ = ["ChaosPlan", "FailureInjector", "InjectedFailure", "MergedTopK",
+           "QuorumDecision", "partial_merge", "resolve_quorum", "supervise"]

@@ -38,6 +38,15 @@ def pad_sentinel_row(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))], dim=0)
 
 
+def pad_rows_to_multiple(x: torch.Tensor, mult: int) -> torch.Tensor:
+    """(N, ...) → (N', ...) with N' the next multiple of ``mult``, padded
+    with zero rows (shard-divisibility padding)."""
+    pad = (-x.shape[0]) % mult
+    if pad == 0:
+        return x
+    return torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))], dim=0)
+
+
 def _codes_u8(codes: torch.Tensor) -> torch.Tensor:
     """Canonical plain codes, fs4 packed bytes and fs4 LUTs: uint8,
     contiguous."""

@@ -128,3 +128,12 @@ def pq_pairwise_ref(x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     c2 = (c * c).sum(dim=-1)[None, :, :]               # (1, M, K)
     xc = torch.einsum("nmd,mkd->nmk", x, c)            # (N, M, K)
     return x2 - 2.0 * xc + c2
+
+
+def kmeans_assign_ref(x: torch.Tensor, centroids: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Nearest-centroid assignment (flat, single space): (N, D) × (K, D) →
+    (assign (N,) int32, sqdist (N,) f32), ties to the lowest centroid."""
+    d = pq_pairwise_ref(x[:, None, :], centroids[None, :, :])[:, 0, :]   # (N, K)
+    best, idx = torch.min(d, dim=1)
+    return idx.to(torch.int32), best

@@ -1,0 +1,251 @@
+"""ANN serving driver: load a trained RPQ checkpoint and serve queries.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --ckpt-dir runs/rpq \
+        --dataset sift-small [--scenario hybrid|memory|sharded] \
+        [--codes u8|fs4] [--h 32] [--entries 8] [--prune-eps 0.1] \
+        [--deadline-ms 20] [--degrade-level 2] [--chaos io=0.05] \
+        [--port-stdin] [--device cpu]
+
+Port of ``repro/launch/serve.py``; ``--device`` (default ``cuda``; without
+CUDA the driver raises unless given ``--device cpu``) is the port's own.
+Restores the latest checkpoint written by either package's
+``launch/train.py`` (reads retried under ``--chaos io=p`` faults),
+re-encodes the base from the checkpointed quantizer, builds the engine and
+either runs a one-shot evaluation batch — one ``[serve] …`` line with
+recall, QPS, hops, rounds, the truncated share and resident memory — or
+answers newline-delimited query vectors on stdin.
+
+Scenarios (``search/engine.py``): ``memory`` (codes + PG resident, ADC
+routing only), ``hybrid`` (DiskANN-style: ADC routing + exact rerank from
+"SSD" vectors; the default) and ``sharded`` (the graph-free exhaustive
+scan with a local rerank, on ONE shard; ``--chaos dead=0`` drops it from
+the merge). ``sharded-graph``, ``streaming`` and ``disk`` are not ported
+yet and exit with the queue item that holds them.
+
+``--entries S`` / ``--prune-eps ε`` switch on adaptive routing (DESIGN.md
+§11); ``--deadline-ms`` becomes a ``max_rounds`` budget through
+:func:`calibrate_max_rounds`; ``--degrade-level`` applies the degradation
+ladder (``search/degrade.py``) on top of the flags.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import quantizer as Q
+from repro_torch.core.trainer import to_model
+from repro_torch.data import load_dataset
+from repro_torch.device import resolve_device
+from repro_torch.dist import checkpoint as ckpt
+from repro_torch.dist.fault import ChaosPlan
+from repro_torch.dist.retry import RetryPolicy
+from repro_torch.graphs import knn_ids
+from repro_torch.launch.train import build_or_load_graph
+from repro_torch.pq import base as pqbase
+from repro_torch.pq import pack
+from repro_torch.search.degrade import DegradationPolicy
+from repro_torch.search.engine import HybridEngine, InMemoryEngine, ShardedEngine
+from repro_torch.search.metrics import measure_qps, recall_at_k
+
+SCENARIOS = ("hybrid", "memory", "sharded", "sharded-graph", "streaming", "disk")
+# scenarios of the reference that wait for later slices (ROADMAP.md queue A)
+NOT_PORTED = {"sharded-graph": "queue A item 14 (sharded engines)",
+              "streaming": "queue A item 12 (streaming index)",
+              "disk": "queue A item 13 (disk tier)"}
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def calibrate_max_rounds(engine, queries: torch.Tensor, deadline_s: float,
+                         **kw) -> int:
+    """Turn a wall-clock deadline into a per-call round budget: run one
+    warm-up batch (kernel builds, allocator), time a steady-state batch,
+    and divide the observed per-round latency into the deadline (DESIGN.md
+    §13)."""
+    engine.search(queries, **kw)
+    _sync(queries.device)
+    t0 = time.perf_counter()
+    res = engine.search(queries, **kw)
+    _sync(queries.device)
+    elapsed = time.perf_counter() - t0
+    rounds = max(float(res.rounds.max()), 1.0)
+    return max(1, int(deadline_s / (elapsed / rounds)))
+
+
+def restore_model(ckpt_dir: str, dataset: str, device,
+                  retry: Optional[RetryPolicy] = None):
+    """The latest checkpoint's quantizer and the dataset it was trained on:
+    (step, dataset, QuantizerModel, (m, k))."""
+    state = ckpt.restore(ckpt_dir, retry=retry, device=device)
+    extra = state.get("extra") or {}
+    ds = load_dataset(extra.get("dataset", dataset), device=device)
+    m, k = extra.get("m", 8), extra.get("k", 64)
+    flat = state["params"]
+    params = Q.RPQParams(theta=flat["theta"], codebooks=flat["codebooks"],
+                         log_alpha=flat["log_alpha"])
+    return state["step"], ds, to_model(Q.RPQConfig(dim=ds.dim, m=m, k=k), params), (m, k)
+
+
+def build_engine(args, ds, model):
+    """The scenario's engine over the base set, in the ``--codes`` layout."""
+    codes = pqbase.encode(model, ds.base)
+    if args.codes == "fs4":
+        # fast-scan layout (DESIGN.md §8): every engine dispatches on the
+        # QuantizedLUT that build_lut(quantize=True) returns
+        codes = pack.pack_codes(codes)
+        lut_fn = lambda q: pqbase.build_lut(model, q, quantize=True)
+        print(f"[serve] fast-scan fs4 layout: {codes.shape[1]} packed "
+              f"bytes/vector, uint8 LUTs")
+    else:
+        lut_fn = lambda q: pqbase.build_lut(model, q)
+    dev = ds.base.device
+    if args.scenario == "sharded":  # graph-free scatter-gather scan
+        engine = ShardedEngine(codes, lut_fn, vectors=ds.base, device=dev)
+        print(f"[serve] sharded over {engine.n_shards} device shard(s)")
+        return engine
+    graph = build_or_load_graph(torch.Generator().manual_seed(0), ds.base,
+                                f"{args.ckpt_dir}/graph_base.npz",
+                                args.graph_r, args.graph_l)
+    if args.scenario == "hybrid":
+        return HybridEngine(graph, codes, lut_fn, vectors=ds.base, device=dev)
+    return InMemoryEngine(graph, codes, lut_fn, device=dev)
+
+
+def serve_stdin(args, engine, dim: int, device) -> None:
+    """The toy request loop: one query of ``dim`` floats per line; a line
+    that does not parse prints ``!! expected …`` and the loop goes on."""
+    print(f"[serve] reading {dim}-d queries from stdin (one per line; EOF to stop)")
+    for line in sys.stdin:
+        try:
+            vals = np.fromiter(line.split(), dtype=np.float32)
+        except ValueError:
+            print(f"!! expected {dim} floats, got unparseable input")
+            continue
+        if vals.size != dim:
+            print(f"!! expected {dim} floats, got {vals.size}")
+            continue
+        t0 = time.perf_counter()
+        res = engine.search(torch.from_numpy(vals)[None].to(device), k=args.k,
+                            h=args.h, expand=args.expand, entries=args.entries,
+                            prune_eps=args.prune_eps)
+        ids = res.ids[0].cpu().numpy().tolist()
+        dists = res.dists[0].cpu().numpy().round(3).tolist()
+        dt = (time.perf_counter() - t0) * 1e3
+        print(f"ids={ids} dists={dists} ({dt:.1f} ms, {int(res.hops[0])} hops)")
+
+
+def run(args) -> dict:
+    """The one-shot evaluation (or the stdin loop). Returns the engine, its
+    search kwargs and the timed result."""
+    if args.scenario in NOT_PORTED:
+        raise SystemExit(f"--scenario {args.scenario} is not ported to the "
+                         f"PyTorch package yet: {NOT_PORTED[args.scenario]} "
+                         f"in ROADMAP.md")
+    dev = resolve_device(args.device)
+    plan = ChaosPlan.parse(args.chaos) if args.chaos else None
+    retry = None
+    if plan is not None and plan.io_fault_p > 0:
+        # every checkpoint read in this process now fails transiently with
+        # probability io_fault_p — and retries through the backoff policy
+        ckpt.set_io_fault_hook(plan.io_fault())
+        retry = RetryPolicy()
+        print(f"[serve] chaos: transient I/O fault p={plan.io_fault_p} "
+              f"injected on checkpoint reads (retry up to "
+              f"{retry.max_attempts} attempts)")
+
+    step, ds, model, (m, k) = restore_model(args.ckpt_dir, args.dataset, dev, retry)
+    print(f"[serve] restored step {step} quantizer (M={m}, K={k}) from {args.ckpt_dir}")
+    if args.codes == "fs4" and k > 16:
+        raise SystemExit(
+            f"--codes fs4 needs 4-bit sub-codes (K <= 16); this checkpoint "
+            f"was trained with K={k}. Re-train with --k 16 (double M to keep "
+            f"the byte budget).")
+    engine = build_engine(args, ds, model)
+    if args.port_stdin:
+        serve_stdin(args, engine, ds.dim, dev)
+        return {"engine": engine}
+
+    policy = DegradationPolicy()
+    skw = policy.apply(engine, args.degrade_level, h=args.h, expand=args.expand,
+                       entries=args.entries, prune_eps=args.prune_eps)
+    if args.deadline_ms and not isinstance(engine, ShardedEngine):
+        # the graph-free scan has no rounds to budget
+        mr = calibrate_max_rounds(engine, ds.queries, args.deadline_ms / 1e3,
+                                  k=args.k, **skw)
+        skw["max_rounds"] = mr
+        print(f"[serve] deadline {args.deadline_ms}ms → max_rounds={mr}")
+    if plan is not None and isinstance(engine, ShardedEngine):
+        skw["alive"] = list(plan.alive(engine.n_shards))
+        dead = engine.n_shards - sum(skw["alive"])
+        print(f"[serve] chaos: {dead}/{engine.n_shards} shard(s) dead")
+
+    gt, _ = knn_ids(ds.base, ds.queries, args.k)
+    qps, res = measure_qps(lambda q: engine.search(q, k=args.k, **skw), ds.queries)
+    rec = recall_at_k(res.ids, gt, args.k)
+    degr = "DEGRADED " if res.degraded else ""
+    print(f"[serve] {args.scenario}: recall@{args.k}={rec:.4f} qps={qps:.1f} "
+          f"hops={float(res.hops.float().mean()):.1f} "
+          f"rounds={float(res.rounds.float().mean()):.1f} "
+          f"truncated={float(res.truncated.float().mean()):.2f} {degr}"
+          f"resident={engine.memory_bytes()/1e6:.1f}MB")
+    return {"engine": engine, "search_kwargs": skw, "result": res, "recall": rec,
+            "qps": qps}
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--ckpt-dir", required=True)
+    ap.add_argument("--dataset", default="sift-small")
+    ap.add_argument("--scenario", choices=SCENARIOS, default="hybrid")
+    ap.add_argument("--codes", choices=("u8", "fs4"), default="u8",
+                    help="serving layout: u8 = 1 byte/sub-code + f32 LUTs; "
+                    "fs4 = fast-scan 4-bit packed codes + quantized uint8 "
+                    "LUTs (requires a checkpoint trained with K <= 16)")
+    ap.add_argument("--h", type=int, default=32)
+    ap.add_argument("--expand", type=int, default=1,
+                    help="frontier batch size E (DESIGN.md §9): nodes "
+                    "expanded per beam round (the sharded scan ignores it)")
+    ap.add_argument("--entries", type=int, default=1,
+                    help="adaptive routing (DESIGN.md §11): seed each beam "
+                    "with S entry points from the PQ-hash coarse index; 1 = "
+                    "classic routing from the medoid (bit-identical)")
+    ap.add_argument("--prune-eps", type=float, default=0.0,
+                    help="adaptive routing (DESIGN.md §11): hop-pruning "
+                    "margin ε; 0 = off (bit-identical)")
+    ap.add_argument("--k", type=int, default=10)
+    ap.add_argument("--graph-r", type=int, default=24)
+    ap.add_argument("--graph-l", type=int, default=48)
+    ap.add_argument("--deadline-ms", type=float, default=0.0,
+                    help="per-batch serving deadline (DESIGN.md §13): a "
+                    "warm-up batch calibrates the per-round latency and the "
+                    "beam gets the max_rounds budget that fits; 0 = none")
+    ap.add_argument("--degrade-level", type=int, default=0,
+                    help="degradation ladder rung (DESIGN.md §13): 0 = full "
+                    "config; L1 expand, L2 entries, L3 aggressive prune, L4 "
+                    "rerank (L5, the delta scan, has no engine here)")
+    ap.add_argument("--chaos", default="",
+                    help="fault-injection plan (DESIGN.md §13), e.g. "
+                    "'io=0.05,dead=0,seed=7': transient checkpoint-read "
+                    "faults (retried), dead shards dropped from the merge")
+    ap.add_argument("--port-stdin", action="store_true",
+                    help="read whitespace-separated query vectors on stdin")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; without CUDA pass --device cpu")
+    return ap
+
+
+def main(argv=None) -> dict:
+    return run(parser().parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -25,21 +25,49 @@ keeps the classic semantics, in-row duplicates included.
 ``beam_search_trace`` also records the ranked beam after every round, the
 paper's Definition 6 routing features (RPQ training's ``sample_routing``).
 
-Tombstones, multi-entry seeding, hop pruning and deadline budgets belong to
-later slices of the port.
+The reference's other knobs are here too, each with its zero-cost OFF
+value bit-identical to the classic beam:
+
+* **entry sets** (Q, S): the S entries are deduplicated, scored in one
+  ``dist_fn`` call, ranked (ties to the lower lane) and installed as the
+  initial beam; lanes outside [0, N) are padding (``search/seed.py`` pads
+  with -1). S = 1 runs the classic single-entry init op for op.
+* **tombstones**: a bitset over vertex ids (the visited set's word
+  layout). A dead frontier vertex is scored and counted, then ranks +inf; a
+  dead ENTRY gets ``DEAD_ENTRY_DIST`` so the search still routes off it;
+  dead ids are scrubbed from the returned beam after ``truncated`` is
+  computed.
+* **hop pruning** (``lb_dist_fn``, ``m_prefix``, ``m_total``,
+  ``prune_eps``, ``lb_scale_fn``): each round first scores the frontier on
+  the first ``m_prefix`` subspaces (a certified lower bound), and
+  full-scores only the lanes with ``d_lb · cal · (1+ε) ≤ τ``, τ the worst
+  beam distance. Pruned lanes stay visited. ``n_dist`` counts subspace
+  units inside the loop and full-LUT equivalents (a ceiling division)
+  after it. So each pruned round launches the distance kernel twice.
+* **budgets** ``max_rounds`` / ``max_n_dist``: caps checked before each
+  round in the lane's own loop condition; an exhausted lane freezes with
+  its best-so-far beam and ``truncated=True``. ``None`` adds no check.
+
+A tombstone mask baked into ``make_adc_dist_fn`` (the reference's
+``tombstones=`` there) waits for the streaming slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.pq.pack import QuantizedLUT
 
 INF = float("inf")
+
+# Distance of a tombstoned ENTRY vertex: any real candidate outranks it, but
+# it is finite, so the search still expands it (the deleted-medoid case).
+DEAD_ENTRY_DIST = 1e30
 
 
 @dataclasses.dataclass
@@ -106,44 +134,85 @@ def _scatter_bits_(bits: torch.Tensor, idx: torch.Tensor,
 
 
 def _normalize_entries(entry, nq: int, device) -> torch.Tensor:
-    """``entry`` as a (Q,) int64 tensor: a shared vertex (int or 0-d) or one
-    vertex per query ((Q,) or (Q, 1)). Entry SETS (Q, S > 1) are not in this
-    slice."""
+    """``entry`` as a (Q, S) int64 entry-set matrix: a shared vertex (int
+    or 0-d) or one vertex per query ((Q,)) become (Q, 1); (Q, S) entry sets
+    pass through. S = 1 runs the classic single-entry init."""
     entry = torch.as_tensor(entry, device=device).long()
-    if entry.dim() == 2 and entry.shape[1] == 1:
-        entry = entry[:, 0]
     if entry.dim() == 0:
-        return entry.expand(nq).contiguous()
-    if entry.dim() != 1 or entry.shape[0] != nq:
-        raise ValueError(f"entry must be shared, (Q,) or (Q, 1); got "
+        return entry.expand(nq, 1).contiguous()
+    if entry.dim() == 1:
+        entry = entry[:, None]
+    if entry.dim() != 2 or entry.shape[0] != nq:
+        raise ValueError(f"entry must be shared, (Q,) or (Q, S); got "
                          f"{tuple(entry.shape)} for Q={nq}")
     return entry
 
 
+def as_bitset(words, device) -> torch.Tensor:
+    """A (W,) bitset of 32-bit words (numpy uint32 as the reference keeps
+    it, or any integer tensor) as the port's int32 words: the same 32 bits,
+    bit 31 as the sign."""
+    if isinstance(words, torch.Tensor) and words.dtype == torch.int32:
+        return words.to(device)
+    w = np.asarray(words.cpu() if isinstance(words, torch.Tensor) else words)
+    return torch.from_numpy(w.astype(np.uint32).view(np.int32).copy()).to(device)
+
+
+def _is_dead(tombstones: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """(Q, B) ids → bool, True where the id is a tombstoned vertex; lookups
+    are guarded to [0, n) (sentinels and padding lanes are never dead)."""
+    ok = (idx >= 0) & (idx < n)
+    safe = torch.where(ok, idx, 0)
+    words = tombstones[safe >> 5]
+    return (((words >> (safe & 31).to(torch.int32)) & 1) != 0) & ok
+
+
 def beam_search(neighbors: torch.Tensor, entry, qdatas: torch.Tensor,
                 dist_fn: Callable, *, h: int = 32, max_steps: int = 256,
-                expand: int = 1) -> SearchResult:
+                expand: int = 1, tombstones=None,
+                lb_dist_fn: Optional[Callable] = None, m_prefix: int = 0,
+                m_total: int = 0, prune_eps: float = 0.0,
+                lb_scale_fn: Optional[Callable] = None,
+                max_rounds=None, max_n_dist=None) -> SearchResult:
     """Batched beam search.
 
     Args:
       neighbors: (N, R) padded adjacency (sentinel N), int32.
-      entry:     shared entry vertex (the PG medoid) or (Q,) per query.
+      entry:     shared entry vertex (the PG medoid), (Q,) per query, or a
+                 (Q, S) entry SET per query (``search/seed.py``; lanes
+                 outside [0, N) are padding).
       qdatas:    (Q, ...) per-query data: LUTs (Q, M, K) or a QuantizedLUT
                  (fs4) for ADC routing, raw queries (Q, D) for exact
                  routing.
       dist_fn:   (qdatas, ids (Q, B)) -> (Q, B) f32; B is the frontier
-                 width expand·R (1 for the entry).
+                 width expand·R (1 for the entry, S for an entry set).
       h:         beam width (the paper's global candidate set size).
       max_steps: ROUND cap per query.
       expand:    frontier batch size E — nodes expanded per round.
+      tombstones: optional (W,) bitset of deleted vertices (numpy uint32 or
+                 an integer tensor; W ≥ (N+31)//32), shared by the batch.
+      lb_dist_fn / m_prefix / m_total / prune_eps: hop pruning — all four
+                 set and ``prune_eps > 0`` switch it on; ``lb_dist_fn`` is
+                 ``make_adc_dist_fn(m_prefix=)``.
+      lb_scale_fn: optional per-query extrapolation factor
+                 (``make_lb_scale_fn``), qdatas -> (Q,); default M/m′.
+      max_rounds / max_n_dist: per-call budgets (rounds; full-LUT-equivalent
+                 distance evaluations). ``None`` adds no check.
     """
     return _beam(neighbors, entry, qdatas, dist_fn, h=h, max_steps=max_steps,
-                 expand=expand, trace_len=0)[0]
+                 expand=expand, trace_len=0, tombstones=tombstones,
+                 lb_dist_fn=lb_dist_fn, m_prefix=m_prefix, m_total=m_total,
+                 prune_eps=prune_eps, lb_scale_fn=lb_scale_fn,
+                 max_rounds=max_rounds, max_n_dist=max_n_dist)[0]
 
 
 def beam_search_trace(neighbors: torch.Tensor, entry, qdatas: torch.Tensor,
                       dist_fn: Callable, *, h: int = 32, max_steps: int = 256,
-                      trace_len: int = 64, expand: int = 1) -> Trace:
+                      trace_len: int = 64, expand: int = 1, tombstones=None,
+                      lb_dist_fn: Optional[Callable] = None, m_prefix: int = 0,
+                      m_total: int = 0, prune_eps: float = 0.0,
+                      lb_scale_fn: Optional[Callable] = None,
+                      max_rounds=None, max_n_dist=None) -> Trace:
     """:func:`beam_search` that also records the ranked beam after every
     round. ``hop_valid[q, t]`` flags ROUNDS: a live lane records its beam at
     slot ``t = rounds so far`` while ``t < trace_len``, so the flagged prefix
@@ -153,33 +222,79 @@ def beam_search_trace(neighbors: torch.Tensor, entry, qdatas: torch.Tensor,
     if trace_len < 1:
         raise ValueError("beam_search_trace: trace_len must be at least 1")
     res, trace = _beam(neighbors, entry, qdatas, dist_fn, h=h,
-                       max_steps=max_steps, expand=expand, trace_len=trace_len)
+                       max_steps=max_steps, expand=expand, trace_len=trace_len,
+                       tombstones=tombstones, lb_dist_fn=lb_dist_fn,
+                       m_prefix=m_prefix, m_total=m_total, prune_eps=prune_eps,
+                       lb_scale_fn=lb_scale_fn, max_rounds=max_rounds,
+                       max_n_dist=max_n_dist)
     tbi, tbd, tbv = trace
     return Trace(tbi.to(torch.int32), tbd, tbv, res)
 
 
 def _beam(neighbors, entry, qdatas, dist_fn, *, h, max_steps, expand,
-          trace_len):
+          trace_len, tombstones=None, lb_dist_fn=None, m_prefix=0, m_total=0,
+          prune_eps=0.0, lb_scale_fn=None, max_rounds=None, max_n_dist=None):
     n, r = neighbors.shape
     dev = neighbors.device
     nq = (qdatas.lut if isinstance(qdatas, QuantizedLUT) else qdatas).shape[0]
     e = max(1, min(expand, h))
     nwords = (n + 31) // 32 + 1
     entries = _normalize_entries(entry, nq, dev)
+    s = entries.shape[1]
+    ts = None if tombstones is None else as_bitset(tombstones, dev)
+    # hop pruning runs only when fully configured; prune_eps=0 is the OFF
+    # switch (bit-identical to the unpruned beam)
+    prune = (lb_dist_fn is not None and prune_eps > 0.0
+             and 0 < m_prefix < m_total)
+    if prune:
+        # d̂ = d_lb · cal, folded with (1+ε) into one per-query gate scale
+        cal = (lb_scale_fn(qdatas) if lb_scale_fn is not None
+               else torch.tensor(float(m_total), dtype=torch.float32, device=dev)
+               / torch.tensor(float(m_prefix), dtype=torch.float32, device=dev))
+        gate = (cal * torch.tensor(1.0 + prune_eps, dtype=torch.float32,
+                                   device=dev)).reshape(-1, 1)
 
     ids = torch.full((nq, h), n, dtype=torch.int64, device=dev)
-    ids[:, 0] = entries
     dists = torch.full((nq, h), INF, dtype=torch.float32, device=dev)
-    dists[:, 0] = dist_fn(qdatas, entries[:, None])[:, 0]
     exp = torch.ones((nq, h), dtype=torch.bool, device=dev)
-    exp[:, 0] = False
     visited = torch.zeros((nq, nwords), dtype=torch.int32, device=dev)
-    _scatter_bits_(visited, entries[:, None],
-                   torch.ones((nq, 1), dtype=torch.bool, device=dev))
+    if s == 1:
+        # the classic single-entry init, op for op (bit-identity contract)
+        first = entries[:, 0]
+        ids[:, 0] = first
+        d_entry = dist_fn(qdatas, entries)[:, 0]
+        if ts is not None:
+            d_entry = torch.where(_is_dead(ts, first, n), DEAD_ENTRY_DIST, d_entry)
+        dists[:, 0] = d_entry
+        exp[:, 0] = False
+        _scatter_bits_(visited, entries,
+                       torch.ones((nq, 1), dtype=torch.bool, device=dev))
+        n_seeds = torch.ones(nq, dtype=torch.int32, device=dev)
+    else:
+        # multi-entry init: dedupe the set, score the distinct valid entries
+        # in ONE dist_fn call, rank (ties → lower lane), install the top h
+        sh = min(s, h)
+        ok = (entries >= 0) & (entries < n)
+        uniq = _first_occurrence(entries, ok)
+        d_ent = torch.where(uniq, dist_fn(qdatas, torch.where(uniq, entries, 0)),
+                            INF)
+        if ts is not None:
+            d_ent = torch.where(uniq & _is_dead(ts, entries, n), DEAD_ENTRY_DIST,
+                                d_ent)
+        sd, order = torch.sort(d_ent, dim=1, stable=True)
+        sids = torch.where(sd < INF, entries.gather(1, order), n)
+        ids[:, :sh] = sids[:, :sh]
+        dists[:, :sh] = sd[:, :sh]
+        exp[:, :sh] = sd[:, :sh] == INF
+        _scatter_bits_(visited, entries, uniq)
+        n_seeds = uniq.sum(dim=1, dtype=torch.int32)
     hops = torch.zeros(nq, dtype=torch.int32, device=dev)
-    ndist = torch.ones(nq, dtype=torch.int32, device=dev)
+    ndist = n_seeds * m_total if prune else n_seeds
     step = torch.zeros(nq, dtype=torch.int32, device=dev)
     pad = torch.zeros((nq, e * r), dtype=torch.bool, device=dev)
+    # the n_dist cap, in subspace units while pruning (as ndist is)
+    nd_cap = (None if max_n_dist is None
+              else int(max_n_dist) * (m_total if prune else 1))
 
     if trace_len:
         lanes = torch.arange(nq, device=dev)
@@ -188,7 +303,14 @@ def _beam(neighbors, entry, qdatas, dist_fn, *, h, max_steps, expand,
         tbv = torch.zeros((nq, trace_len), dtype=torch.bool, device=dev)
 
     def live_lanes():
-        return (step < max_steps) & (~exp & (dists < INF)).any(dim=1)
+        live = (step < max_steps) & (~exp & (dists < INF)).any(dim=1)
+        # budgets: checked before each round, so rounds never exceed
+        # max_rounds and n_dist overshoots its cap by at most one frontier
+        if max_rounds is not None:
+            live = live & (step < int(max_rounds))
+        if nd_cap is not None:
+            live = live & (ndist < nd_cap)
+        return live
 
     live = live_lanes()
     while bool(live.any()):
@@ -213,12 +335,26 @@ def _beam(neighbors, entry, qdatas, dist_fn, *, h, max_steps, expand,
             # classic semantics: in-row duplicates stay fresh (scored
             # twice); only the bitset update deduplicates
             _scatter_bits_(visited, flat, _first_occurrence(flat, fresh))
-        # 3. ONE dist_fn call for the whole batch's frontier
-        nd = dist_fn(qdatas, torch.where(fresh, flat, 0))
-        nd = torch.where(fresh, nd, INF)
-        ndist = ndist + fresh.sum(dim=1, dtype=torch.int32)
+        # 3. ONE dist_fn call for the whole batch's frontier (two when
+        #    pruning: the prefix lower bound, then the lanes it keeps)
+        if prune:
+            tau = dists[:, h - 1:h]
+            d_lb = lb_dist_fn(qdatas, torch.where(fresh, flat, 0))
+            front = fresh & (d_lb * gate <= tau)
+            nd = torch.where(front, dist_fn(qdatas, torch.where(front, flat, 0)),
+                             INF)
+            ndist = ndist + (m_prefix * fresh.sum(dim=1, dtype=torch.int32)
+                             + m_total * front.sum(dim=1, dtype=torch.int32))
+        else:
+            front = fresh
+            nd = torch.where(fresh, dist_fn(qdatas, torch.where(fresh, flat, 0)),
+                             INF)
+            ndist = ndist + fresh.sum(dim=1, dtype=torch.int32)
+        if ts is not None:
+            # dead neighbors were scored (and counted) but rank +inf
+            nd = torch.where(_is_dead(ts, flat, n), INF, nd)
         # 4. merge beam ∪ frontier, keep the h best (stable: ties → lower)
-        all_ids = torch.cat([ids, torch.where(fresh, flat, n)], dim=1)
+        all_ids = torch.cat([ids, torch.where(front, flat, n)], dim=1)
         all_d = torch.cat([dists, nd], dim=1)
         all_e = torch.cat([exp, pad], dim=1)
         new_d, order = torch.sort(all_d, dim=1, stable=True)
@@ -238,7 +374,17 @@ def _beam(neighbors, entry, qdatas, dist_fn, *, h, max_steps, expand,
         step = step + live.to(torch.int32)
         live = live_lanes()
 
+    if prune:
+        # subspace units → full-LUT equivalents (a lone partial score still
+        # counts as work done)
+        ndist = (ndist + (m_total - 1)) // m_total
+    # pending unexpanded finite candidates mean a budget or max_steps cut
+    # the lane short; decided before the tombstone scrub
     truncated = (~exp & (dists < INF)).any(dim=1)
+    if ts is not None:
+        dead = _is_dead(ts, ids, n)
+        ids = torch.where(dead, n, ids)
+        dists = torch.where(dead, INF, dists)
     res = SearchResult(ids.to(torch.int32), dists, hops, ndist, step, truncated)
     return res, ((tbi, tbd, tbv) if trace_len else None)
 
@@ -256,6 +402,34 @@ def make_exact_dist_fn(vectors: torch.Tensor) -> Callable:
     return dist_fn
 
 
+def make_lb_scale_fn(*, packed: bool = False, m_prefix: int) -> Callable:
+    """Per-query calibration of the hop-pruning extrapolation factor.
+
+    qdatas match ``make_adc_dist_fn``: LUTs (Q, M, K), or a per-query
+    :class:`~repro_torch.pq.pack.QuantizedLUT` when ``packed=True``.
+    Returns (Q,) ``cal ≥ 1``: the ratio of the full LUT's mean mass to the
+    first ``m_prefix`` rows' mean mass (the estimate of E[d_M] / E[d_m′]
+    under code-independent draws), which replaces the uniform M/m′ that
+    over-prunes on anisotropic data. Clamped below at 1, so d̂ never drops
+    under the certified bound."""
+    if packed:
+        def scale_fn(qlut):
+            m = qlut.lut.shape[1]
+            # zero padding in unused LUT columns deflates every row's mean
+            # by the same K/16 factor — it cancels in the ratio
+            rm = qlut.lut.float().mean(dim=-1)                  # (Q, M)
+            num = qlut.scale * rm.sum(dim=1) + m * qlut.bias
+            den = qlut.scale * rm[:, :m_prefix].sum(dim=1) + m_prefix * qlut.bias
+            return torch.clamp(num / torch.clamp(den, min=1e-20), min=1.0)
+        return scale_fn
+
+    def scale_fn(luts):
+        rm = luts.mean(dim=-1)                                   # (Q, M)
+        return torch.clamp(rm.sum(dim=1) / torch.clamp(rm[:, :m_prefix].sum(dim=1),
+                                                       min=1e-20), min=1.0)
+    return scale_fn
+
+
 def make_adc_dist_fn(codes: torch.Tensor, *, packed: bool = False,
                      m_prefix: int = 0) -> Callable:
     """qdatas = LUTs (Q, M, K); codes must be (N+1, M) sentinel-padded
@@ -267,8 +441,9 @@ def make_adc_dist_fn(codes: torch.Tensor, *, packed: bool = False,
     ceil(M/2)) packed bytes; each call is one ``hop_adc_fs``.
 
     ``m_prefix > 0`` makes a PARTIAL-LUT distance over only the first
-    ``m_prefix`` subspaces (a lower bound on the full one; the hop-pruning
-    ``lb_dist_fn`` of a later slice). ``m_prefix=0`` is the full distance.
+    ``m_prefix`` subspaces: a lower bound on the full one (every LUT entry
+    is ≥ 0; fs4 dequantizes with ``m_prefix · bias``, bias ≥ 0), the
+    ``lb_dist_fn`` of hop pruning. ``m_prefix=0`` is the full distance.
     """
     if packed:
         def dist_fn(qlut, ids):

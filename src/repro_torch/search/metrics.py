@@ -34,6 +34,30 @@ def recall_at_k(pred_ids, gt_ids, k: int) -> float:
     return hits / (k * len(gt))
 
 
+def live_ground_truth(vectors, live_gids, queries, k: int) -> np.ndarray:
+    """Exact top-k over the LIVE subset of a churned corpus, in GLOBAL ids.
+
+    Restrict ``vectors`` (row = vector of global id) to ``live_gids``,
+    brute-force the ground truth there with ``graphs.knn.knn_ids`` (on the
+    vectors' device for a tensor, else the CPU), and translate the subset
+    indices back to global ids, so the result compares directly against
+    an engine's returned ids with :func:`recall_at_k`.
+
+    Returns:
+      (Q, k) int64 numpy global ids of the exact nearest live rows.
+    """
+    from repro_torch.graphs.knn import knn_ids
+
+    gids = _numpy(live_gids).astype(np.int64)
+    if isinstance(vectors, torch.Tensor):
+        vecs = vectors[torch.from_numpy(gids).to(vectors.device)]
+    else:
+        vecs = torch.from_numpy(np.asarray(vectors, np.float32)[gids])
+    qs = torch.as_tensor(queries, dtype=torch.float32, device=vecs.device)
+    gt, _ = knn_ids(vecs, qs, k)
+    return gids[_numpy(gt)]
+
+
 def _sync(queries: torch.Tensor) -> None:
     if queries.is_cuda:
         torch.cuda.synchronize(queries.device)

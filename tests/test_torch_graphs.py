@@ -119,3 +119,34 @@ def test_build_vamana_from_generator_is_a_valid_graph():
     assert nb.shape == (n, 10) and int(nb.min()) >= 0 and int(nb.max()) <= n
     assert not bool((nb == torch.arange(n)[:, None]).any())  # no self loops
     assert float((nb < n).sum(1).float().mean()) > 5.0
+
+
+def test_from_lists_degree_stats_symmetrize_match_jax():
+    from repro.graphs.adjacency import degree_stats as j_degree_stats
+    from repro.graphs.adjacency import from_lists as j_from_lists
+    from repro.graphs.adjacency import symmetrize as j_symmetrize
+    from repro_torch.graphs.adjacency import degree_stats, from_lists, symmetrize
+
+    rng = np.random.default_rng(4)
+    lists = [rng.choice(50, rng.integers(0, 9), replace=False) for _ in range(50)]
+    jg, tg = j_from_lists(lists, 6, 3), from_lists(lists, 6, 3, device="cpu")
+    np.testing.assert_array_equal(tg.neighbors.numpy(), np.asarray(jg.neighbors))
+    assert int(tg.medoid) == int(jg.medoid)
+    assert degree_stats(tg) == j_degree_stats(jg)
+    nb = np.asarray(jg.neighbors)
+    np.testing.assert_array_equal(symmetrize(nb, 8), j_symmetrize(nb, 8))
+
+
+def test_find_medoid_with_a_generator_samples_rows():
+    """Keyed medoid: the closest-to-centroid row among ``sample`` rows drawn
+    without replacement (the port draws them from a torch.Generator, JAX
+    from its key, so the rows differ; the rule does not)."""
+    x = _clustered(6, 3000, 16)
+    g = torch.Generator().manual_seed(0)
+    med = int(t_find_medoid(T(x), sample=256, generator=g))
+    idx = torch.randperm(3000, generator=torch.Generator().manual_seed(0))[:256].numpy()
+    c = x.mean(axis=0)
+    assert med == idx[np.argmin(((x[idx] - c) ** 2).sum(axis=1))]
+    # at N <= sample it is the keyless medoid, as in JAX
+    assert int(t_find_medoid(T(x[:200]), generator=g)) == int(
+        j_find_medoid(jnp.asarray(x[:200]), key=jax.random.PRNGKey(0)))

@@ -288,3 +288,19 @@ def test_embedding_bag_yardsticks_equal_plain_versions():
     rows = T(rng.integers(0, 256, (7, 64, 16)).astype(np.uint8))
     assert torch.equal(bag(*lut_bag(rows, luts)).reshape(7, 64),
                        tref.hop_gather_ref(rows, luts))
+
+
+def test_kmeans_assign_ref_and_pad_rows_to_multiple_match_jax():
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(300, 6)).astype(np.float32)
+    c = rng.normal(size=(17, 6)).astype(np.float32)
+    ji, jd = jref.kmeans_assign_ref(jnp.asarray(x), jnp.asarray(c))
+    ti, td = tref.kmeans_assign_ref(torch.from_numpy(x), torch.from_numpy(c))
+    assert ti.dtype == torch.int32
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-5, atol=1e-5)
+    for n, mult in ((10, 4), (12, 4), (1, 8)):
+        a = rng.integers(0, 9, (n, 3)).astype(np.uint8)
+        np.testing.assert_array_equal(
+            tops.pad_rows_to_multiple(torch.from_numpy(a), mult).numpy(),
+            np.asarray(jops.pad_rows_to_multiple(jnp.asarray(a), mult)))

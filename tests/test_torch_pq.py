@@ -190,3 +190,58 @@ def test_build_lut_quantized_matches_jax(ds):
     np.testing.assert_allclose(got.scale.numpy(), np.asarray(want.scale), rtol=1e-5)
     np.testing.assert_allclose(got.bias.numpy(), np.asarray(want.bias), rtol=1e-5,
                                atol=1e-4)
+
+
+def test_train_pq_under_a_fixed_rotation_matches_jax(monkeypatch):
+    """``train_pq(rotation=)``: the same rotation and injected k-means init
+    give the same model on both sides (rtol 1e-4: segment_sum vs
+    index_add_, and the rotation product's order)."""
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(600, 8)).astype(np.float32) * 3.0
+    r, _ = np.linalg.qr(rng.normal(size=(8, 8)))
+    r = r.astype(np.float32)
+    init = rng.normal(size=(2, 8, 4)).astype(np.float32)
+    j_km, t_km = jpq.kmeans_multi, tpq.kmeans_multi
+    monkeypatch.setattr(jpq, "kmeans_multi", lambda key, xr, k, iters: j_km(
+        key, xr, k, iters=iters, init=jnp.asarray(init)))
+    monkeypatch.setattr(tpq, "kmeans_multi", lambda xr, k, generator, iters: t_km(
+        xr, k, iters=iters, init=T(init)))
+    want = j_train_pq(jax.random.PRNGKey(0), jnp.asarray(x), 2, 8, iters=5,
+                      rotation=jnp.asarray(r))
+    got = t_train_pq(T(x), 2, 8, generator=torch.Generator(), iters=5,
+                     rotation=T(r), device="cpu")
+    np.testing.assert_array_equal(got.r.numpy(), np.asarray(want.r))
+    np.testing.assert_allclose(got.codebooks.numpy(), np.asarray(want.codebooks),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_train_opq_matches_jax_from_injected_inits(monkeypatch):
+    """OPQ alternates Lloyd and Procrustes; with every k-means started from
+    the same injected init, both packages reach the same rotation and
+    codebooks (rtol 1e-3 / atol 1e-3: SVDs and reductions of two
+    libraries; R = U·Vᵀ is free of the SVD's sign choice)."""
+    from repro.pq.opq import train_opq as j_train_opq
+    from repro_torch.pq.opq import train_opq as t_train_opq
+
+    rng = np.random.default_rng(8)
+    basis, _ = np.linalg.qr(rng.normal(size=(8, 8)))
+    centers = rng.normal(size=(40, 8)) * 4.0
+    x = ((centers[rng.integers(0, 40, 800)] + 0.3 * rng.normal(size=(800, 8)))
+         @ np.diag(np.geomspace(2.0, 0.5, 8)) @ basis.T).astype(np.float32)
+    # K=16 codewords over 4-d subspaces: the Procrustes matrix has full
+    # rank and distinct singular values, so R is unique
+    init = x[rng.permutation(800)[:16]].reshape(16, 2, 4).transpose(1, 0, 2).copy()
+    j_km, t_km = jpq.kmeans_multi, tpq.kmeans_multi
+    monkeypatch.setattr(jpq, "kmeans_multi", lambda key, xr, k, iters: j_km(
+        key, xr, k, iters=iters, init=jnp.asarray(init)))
+    monkeypatch.setattr(tpq, "kmeans_multi", lambda xr, k, generator, iters: t_km(
+        xr, k, iters=iters, init=T(init)))
+    want = j_train_opq(jax.random.PRNGKey(0), jnp.asarray(x), 2, 16, outer_iters=3,
+                       kmeans_iters=4)
+    got = t_train_opq(T(x), 2, 16, generator=torch.Generator(), outer_iters=3,
+                      kmeans_iters=4, device="cpu")
+    np.testing.assert_allclose(got.r.numpy(), np.asarray(want.r), rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(got.codebooks.numpy(), np.asarray(want.codebooks),
+                               rtol=1e-3, atol=1e-3)
+    rr = got.r.numpy()
+    np.testing.assert_allclose(rr @ rr.T, np.eye(8), atol=1e-5)

@@ -311,7 +311,7 @@ def test_port_trains_and_serves_end_to_end_on_cpu():
 
 
 _SRC_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
 
 
 @pytest.mark.parametrize("path", _SRC_FILES, ids=lambda p: p.name)
@@ -337,7 +337,10 @@ def test_import_repro_torch_loads_no_jax():
             "repro_torch.graphs.vamana, repro_torch.pq, repro_torch.pq.pack, "
             "repro_torch.dist.fault, repro_torch.data, repro_torch.common, "
             "repro_torch.core, repro_torch.core.trainer, repro_torch.core.rpq, "
-            "repro_torch.models.recsys, repro_torch.kernels.hop_gather; "
+            "repro_torch.models.recsys, repro_torch.kernels.hop_gather, "
+            "repro_torch.dist.checkpoint, repro_torch.dist.retry, "
+            "repro_torch.search.seed, repro_torch.search.degrade, "
+            "repro_torch.launch.train, repro_torch.launch.serve, repro_torch.pq.opq; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
