@@ -9,7 +9,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 
 1. device: the card's ``nvidia-smi`` name and power limit, torch's name;
 2. build: the seven CUDA kernels from ``src/repro_torch/kernels/csrc`` (six
-   sources), one ``nvcc`` per source, all at once;
+   sources; four of them also as int32-code variants), one ``nvcc`` per
+   source, all at once;
 3. parity: each kernel against its plain PyTorch version on CUDA tensors, at
    the main path's shapes and at edge shapes (the fs4 kernels ``hop_adc_fs``
    and ``adc_scan_fs`` exactly, on their int32 sums; ``adc_scan`` and
@@ -22,10 +23,18 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    the timed window; ``hop_adc``, ``hop_adc_fs``, ``hop_gather`` and
    ``adc_scan``, shorter than their Python launch, and the last two's
    library calls are timed by replaying a captured CUDA graph of many
-   launches, ``hop_adc_fs`` beside an empty kernel on its grid; the fs4
+   launches rotated over input sets past twice the L2, so that each
+   launch reads HBM as its bound assumes (the L2-warm time is logged
+   beside), ``hop_adc_fs`` beside an empty kernel on its grid; the fs4
    dequant pass is timed beside ``adc_scan_fs``, ``adc_scan_batch`` beside
    its shared-memory floor, the PyTorch backward of ``pq_pairwise`` at the
-   default training step's shape);
+   default training step's shape); then the int32-code variants of
+   ``adc_scan_batch``, ``adc_scan``, ``hop_adc`` and ``hop_gather`` at
+   K=512 and the subspace chunking past shared memory (M=64, K=1024 on
+   int32 codes; M=208, K=256 on uint8; fs4 ``adc_scan_fs`` at M=128 and
+   201, exactly), each against its plain version, and the int32 variants
+   at 1000 × 1M, M=16, K=512: the timed outputs held against their plain
+   versions, and their times;
 4. small reference: the unit-test dataset served on the card and on the CPU
    (the plain versions) from the same graph and quantizer must agree;
 5. u8 path at full width: ``load_dataset("sift", scale=10)``, ``knn_ids``
@@ -74,11 +83,37 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    supervised restart), then ``python -m repro_torch.launch.serve`` for the
    ``memory``, ``hybrid`` (``--entries 8 --prune-eps 0.2``, a deadline from
    the memory run, ``--degrade-level 2``, ``--chaos io=0.05``) and
-   ``sharded`` scenarios; each subprocess reports its kernel launches.
+   ``sharded`` scenarios, and ``streaming`` (``--churn 0.1 --churn-rounds 4
+   --refresh-every 2``: generation 0 is the 90k rows left by the hold-out,
+   two refreshed consolidations); each subprocess reports its kernel
+   launches;
+12. stream (run after phase 10 and before phase 11's subprocesses, so that
+   phase 5's tensors can go before them): ``index.StreamingEngine`` on
+   phase 5's 1M base, R=64 graph, u8 codes and PQ model, a delta of 50,000
+   slots, 4 rounds that each tombstone 12,500 random live base rows (numpy
+   seed 0) and insert the same vectors as new rows, then a 1000-query
+   search at h=32, k=10 against ``live_ground_truth`` (QPS, the delta
+   arm's own CUDA-event ms, ``n_live``, resident MB); a refreshed
+   consolidation (``RefreshConfig()``) after round 2, a plain one with a
+   snapshot and ``StreamingEngine.restore`` after round 4; then the same 4
+   rounds over phase 6's fs4 codes (no consolidation) and one round over
+   K=512 int32 codes of a PQ trained here, whose search also runs down the
+   ``hop_gather`` route (equal to the ``hop_adc`` route) and whose codes
+   ``score_candidates_adc`` scores for 10 queries (top-100 equal to the
+   plain scan's). Checks: (a) no tombstoned id is
+   returned; (b) every inserted vector queried as itself returns its new
+   id at rank 0, or on an exact ADC tie an earlier delta row; (c) the
+   kernel-routed top-10 (beam and delta scan) equals the plain-routed one
+   on ≥ 99% of queries; (d) the restored engine's search equals the
+   pre-snapshot one bit for bit; (e) the refresh does not raise the live
+   distortion; (f) each consolidation's ``old2new`` maps exactly the live
+   ids. Logs delete, insert, consolidation, refresh and restore seconds,
+   the phase's kernel launches (the delta arm's CUDA-event timing calls
+   not counted) and its peak device memory.
 
-Phases 5–11 each read every kernel's launch count around their own run.
+Phases 5–12 each read every kernel's launch count around their own run.
 The last three lines are the kernels JSON (each kernel's ``launches`` summed
-over those counted runs), the ``nvidia-smi`` line, and
+over those counted runs; the int32 variants are rows of their own), the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without CUDA, or run outside the repository, it exits non-zero and prints no
 result. It imports nothing of JAX and nothing of the JAX package.
@@ -87,6 +122,7 @@ result. It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import os
@@ -178,6 +214,40 @@ def graph_ms(fn, *, iters: int, replays: int = 5) -> float:
     return start.elapsed_time(end) / (replays * iters)
 
 
+L2_BYTES = 50 * 2**20   # the H100's L2 cache
+
+
+def rotating(fn, sets):
+    """A no-argument call that runs ``fn(*sets[i % len(sets)])`` on its i-th
+    call. Captured by :func:`graph_ms`, successive launches read different
+    buffers, so a kernel whose inputs fit in L2 is timed reading them from
+    HBM, as its bound assumes, and not from the L2 copy left by the call
+    before."""
+    it = itertools.cycle(sets)
+    return lambda: fn(*next(it))
+
+
+def cold_copies(nbytes: float) -> int:
+    """Input sets for :func:`rotating` such that one turn of the rotation
+    touches at least twice the L2 (``nbytes``: what one call touches)."""
+    return max(2, math.ceil(2 * L2_BYTES / nbytes))
+
+
+def touched_bytes(ids, row_bytes: int) -> int:
+    """Bytes of the 32-byte sectors that gathering rows ``ids`` of
+    ``row_bytes`` each reads."""
+    import torch
+
+    first = ids.long().flatten() * row_bytes // 32
+    last = (ids.long().flatten() * row_bytes + row_bytes - 1) // 32
+    return 32 * int(torch.unique(torch.cat([first, last])).numel())
+
+
+def l2_note(row: dict) -> str:
+    return (f" (L2-cold over {row['cold_sets']} input sets; L2-warm "
+            f"{row['l2_warm_ms']:.4f} ms)" if "l2_warm_ms" in row else "")
+
+
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -213,17 +283,21 @@ LIBRARY_CALL = ('torch.nn.functional.embedding_bag(idx, w, mode="sum"), idx and 
                 'built by lut_bag outside the timed window')
 
 
-def library_time(codes, luts, want, *, graph: bool = False) -> tuple[float, float]:
+def library_time(codes, luts, want, *, graph: bool = False,
+                 more: tuple = ()) -> tuple[float, float]:
     """Time of the one ``embedding_bag`` call that computes the same ADC
-    function (CUDA events, or graph replay for the short rows), and its max
-    abs error against ``want`` (a yardstick only: not held to a tolerance,
-    since its sum order on the card is the library's)."""
+    function (CUDA events, or graph replay for the short rows, rotated over
+    ``(codes, luts)`` and the further input sets ``more`` as the kernel's
+    row is), and its max abs error against ``want`` on the first set (a
+    yardstick only: not held to a tolerance, since its sum order on the
+    card is the library's)."""
     import torch
 
-    idx, w = lut_bag(codes, luts)
-    call = lambda: torch.nn.functional.embedding_bag(idx, w, mode="sum")
-    err = float((call().reshape(want.shape) - want).abs().max())
-    ms = graph_ms(call, iters=50) if graph else cuda_ms(call, iters=3)
+    bags = [lut_bag(c, lt) for c, lt in ((codes, luts), *more)]
+    call = lambda idx, w: torch.nn.functional.embedding_bag(idx, w, mode="sum")
+    err = float((call(*bags[0]).reshape(want.shape) - want).abs().max())
+    ms = (graph_ms(rotating(call, bags), iters=50) if graph
+          else cuda_ms(lambda: call(*bags[0]), iters=3))
     return ms, err
 
 
@@ -367,16 +441,25 @@ def parity_and_timing(n_base: int, n_query: int) -> dict:
     distinct = int(torch.unique(ids).numel())
     b_ms, b_by = bound(4 * ids.numel() + distinct * m + 4 * luts.numel() + 4 * ids.numel(),
                        ids.numel() * m)
+    # L2-cold: rotate over fresh (ids, LUTs) sets past twice the L2
+    sets = [(codes_p, ids, luts)] + [
+        (codes_p, torch.randint(0, n_base + 1, ids.shape, generator=g, device=dev,
+                                dtype=torch.int32), rand_luts(n_query, m))
+        for _ in range(cold_copies(4 * luts.numel() + 8 * ids.numel()
+                                   + touched_bytes(ids, m)) - 1)]
+    kern = lambda c, i, lt: khop.launch(c, i, lt, m, hout)
     rows.append(dict(
         name="hop_adc", route="cuda", source="src/repro_torch/kernels/csrc/hop_adc.cu",
         replaces="src/repro/kernels/hop_adc.py:170",
         shape=f"codes ({n_base + 1},{m}) u8, ids ({n_query},64), luts ({n_query},{m},{k}) "
               "one beam round",
-        max_abs_err=errs["hop_adc"],
-        ms=graph_ms(lambda: khop.launch(codes_p, ids, luts, m, hout), iters=200),
-        plain_ms=graph_ms(lambda: ref.hop_adc_ref(codes_p, ids, luts), iters=50),
-        issue_ms=cuda_ms(lambda: khop.launch(codes_p, ids, luts, m, hout), iters=200),
+        max_abs_err=errs["hop_adc"], cold_sets=len(sets),
+        ms=graph_ms(rotating(kern, sets), iters=200),
+        l2_warm_ms=graph_ms(lambda: kern(*sets[0]), iters=200),
+        plain_ms=graph_ms(rotating(ref.hop_adc_ref, sets), iters=50),
+        issue_ms=cuda_ms(rotating(kern, sets), iters=200),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, library_call=None))
+    del sets
 
     aout = torch.empty((n_query, n_base), device=dev)
     b_ms, b_by = bound(codes_full.numel() + 4 * luts_full.numel() + 4 * aout.numel(),
@@ -400,7 +483,7 @@ def parity_and_timing(n_base: int, n_query: int) -> dict:
                  if "issue_ms" in row else "")
         floor = (f", shared-memory floor {row['smem_floor_ms']:.4f} ms"
                  if "smem_floor_ms" in row else "")
-        log(f"[time] {row['name']} {row['shape']}: kernel {row['ms']:.4f} ms{issue}, "
+        log(f"[time] {row['name']} {row['shape']}: kernel {row['ms']:.4f} ms{l2_note(row)}{issue}, "
             f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']}, bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}){floor}")
     return {row["name"]: row for row in rows}
@@ -488,17 +571,28 @@ def fs4_parity_and_timing(n_base: int, n_query: int) -> dict:
     mb = packed_p.shape[1]
     b_ms, b_by = bound(4 * ids.numel() + distinct * mb + luts.numel() + 4 * ids.numel(),
                        ids.numel() * m)
+    # L2-cold: the whole packed corpus (8 MB) fits in L2, so each set has
+    # its own corpus, ids and LUTs, past twice the L2 in all
+    sets = [(packed_p, ids, luts)] + [
+        (ops.pad_sentinel_row(rand_packed(n_base, m)),
+         torch.randint(0, n_base + 1, ids.shape, generator=g, device=dev,
+                       dtype=torch.int32), rand_luts(n_query, m))
+        for _ in range(cold_copies(luts.numel() + 8 * ids.numel()
+                                   + touched_bytes(ids, mb)) - 1)]
+    kern = lambda c, i, lt: khopfs.launch(c, i, lt, m, hout)
     rows.append(dict(
         name="hop_adc_fs", route="cuda", source="src/repro_torch/kernels/csrc/hop_adc_fs.cu",
         replaces="src/repro/kernels/hop_adc.py:254",
         shape=f"packed ({n_base + 1},{mb}) u8, ids ({n_query},64), luts "
               f"({n_query},{m},16) u8, one beam round",
-        max_abs_err=errs["hop_adc_fs"],
-        ms=graph_ms(lambda: khopfs.launch(packed_p, ids, luts, m, hout), iters=200),
-        plain_ms=graph_ms(lambda: ref.hop_adc_fs_acc(packed_p, ids, luts), iters=50),
-        issue_ms=cuda_ms(lambda: khopfs.launch(packed_p, ids, luts, m, hout), iters=200),
+        max_abs_err=errs["hop_adc_fs"], cold_sets=len(sets),
+        ms=graph_ms(rotating(kern, sets), iters=200),
+        l2_warm_ms=graph_ms(lambda: kern(*sets[0]), iters=200),
+        plain_ms=graph_ms(rotating(ref.hop_adc_fs_acc, sets), iters=50),
+        issue_ms=cuda_ms(rotating(kern, sets), iters=200),
         floor_ms=graph_ms(lambda: khopfs.launch_empty(*ids.shape), iters=200),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, library_call=None))
+    del sets
 
     aout = torch.empty((n_query, n_base), dtype=torch.int32, device=dev)
     scale = torch.rand(n_query, generator=g, device=dev) + 0.1
@@ -520,7 +614,7 @@ def fs4_parity_and_timing(n_base: int, n_query: int) -> dict:
                  f"an empty kernel on its grid: {row['floor_ms']:.4f} ms)"
                  if "issue_ms" in row else
                  f" (the dequant pass in ops: {row['dequant_ms']:.4f} ms)")
-        log(f"[time] {row['name']} {row['shape']}: kernel {row['ms']:.4f} ms{extra}, "
+        log(f"[time] {row['name']} {row['shape']}: kernel {row['ms']:.4f} ms{l2_note(row)}{extra}, "
             f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']}, bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
     return {row["name"]: row for row in rows}
@@ -621,39 +715,243 @@ def scorer_parity_and_timing(n_base: int, n_query: int) -> tuple[dict, dict]:
     sout = torch.empty((n_base,), device=dev)
     b_ms, b_by = bound(codes_full.numel() + 4 * lut_full.numel() + 4 * sout.numel(),
                        codes_full.numel())
+    # L2-cold: the 16 MB corpus fits in L2; rotate over corpora
+    sets = [(codes_full, lut_full)] + [
+        (rand_codes((n_base, m)), rand_lut((m, k)))
+        for _ in range(cold_copies(codes_full.numel() + 4 * n_base) - 1)]
+    kern = lambda c, lt: kadc.launch_query(c, lt, sout)
     rows.append(dict(
         name="adc_scan", route="cuda", source="src/repro_torch/kernels/csrc/adc_scan.cu",
         replaces="src/repro/kernels/adc_scan.py:74",
         shape=f"codes ({n_base},{m}) u8 x lut ({m},{k}), one query",
-        max_abs_err=errs["adc_scan"],
-        ms=graph_ms(lambda: kadc.launch_query(codes_full, lut_full, sout), iters=100),
-        plain_ms=cuda_ms(lambda: ref.adc_scan_ref(codes_full, lut_full), iters=10),
-        issue_ms=cuda_ms(lambda: kadc.launch_query(codes_full, lut_full, sout), iters=100),
+        max_abs_err=errs["adc_scan"], cold_sets=len(sets),
+        ms=graph_ms(rotating(kern, sets), iters=100),
+        l2_warm_ms=graph_ms(lambda: kern(*sets[0]), iters=100),
+        plain_ms=cuda_ms(rotating(ref.adc_scan_ref, sets), iters=10),
+        issue_ms=cuda_ms(rotating(kern, sets), iters=100),
         bound_ms=b_ms, bound_by=b_by, library_call=LIBRARY_CALL))
     rows[-1]["library_ms"], rows[-1]["library_err"] = library_time(
-        codes_full, lut_full, ref.adc_scan_ref(codes_full, lut_full), graph=True)
+        codes_full, lut_full, ref.adc_scan_ref(codes_full, lut_full), graph=True,
+        more=sets[1:])
+    del sets
 
     _, ids, luts = cases[0]
     rows_g = codes_p[ids.long()]
     gout = torch.empty(ids.shape, device=dev)
     b_ms, b_by = bound(rows_g.numel() + 4 * luts.numel() + 4 * gout.numel(), rows_g.numel())
+    sets = [(rows_g, luts)] + [
+        (rand_codes(rows_g.shape), rand_lut(luts.shape))
+        for _ in range(cold_copies(rows_g.numel() + 4 * luts.numel() + 4 * gout.numel()) - 1)]
+    kern = lambda c, lt: khopg.launch(c, lt, gout)
     rows.append(dict(
         name="hop_gather", route="cuda", source="src/repro_torch/kernels/csrc/hop_gather.cu",
         replaces="src/repro/kernels/hop_gather.py:55",
         shape=f"codes ({n_query},64,{m}) u8 x luts ({n_query},{m},{k}), one beam round",
-        max_abs_err=errs["hop_gather"],
-        ms=graph_ms(lambda: khopg.launch(rows_g, luts, gout), iters=200),
-        plain_ms=graph_ms(lambda: ref.hop_gather_ref(rows_g, luts), iters=50),
-        issue_ms=cuda_ms(lambda: khopg.launch(rows_g, luts, gout), iters=200),
+        max_abs_err=errs["hop_gather"], cold_sets=len(sets),
+        ms=graph_ms(rotating(kern, sets), iters=200),
+        l2_warm_ms=graph_ms(lambda: kern(*sets[0]), iters=200),
+        plain_ms=graph_ms(rotating(ref.hop_gather_ref, sets), iters=50),
+        issue_ms=cuda_ms(rotating(kern, sets), iters=200),
         bound_ms=b_ms, bound_by=b_by, library_call=LIBRARY_CALL))
     rows[-1]["library_ms"], rows[-1]["library_err"] = library_time(
-        rows_g, luts, ref.hop_gather_ref(rows_g, luts), graph=True)
+        rows_g, luts, ref.hop_gather_ref(rows_g, luts), graph=True, more=sets[1:])
+    del sets
     for row in rows:
-        log(f"[time] {row['name']} {row['shape']}: kernel {row['ms']:.4f} ms (back-to-back "
-            f"launches from the host: {row['issue_ms']:.4f} ms), plain "
+        log(f"[time] {row['name']} {row['shape']}: kernel {row['ms']:.4f} ms{l2_note(row)} "
+            f"(back-to-back launches from the host: {row['issue_ms']:.4f} ms), plain "
             f"{row['plain_ms']:.4f} ms, library {row['library_ms']}, bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
     return {row["name"]: row for row in rows}, backward
+
+
+def wide_parity_and_timing(n_base: int, n_query: int) -> dict:
+    """Phase 3 for the int32-code variants (K > 256, fault C1) and for the
+    subspace chunking past shared memory (fault C2): each int32 variant at
+    K=512 against its plain version (``adc_scan_batch`` bit for bit, the
+    others at rtol 1e-5, atol 1e-4), the chunked edge shapes (M=64, K=1024
+    in f32 on int32 codes; M=208, K=256 on uint8 codes; fs4 at M=128,
+    exactly), then the four int32 variants at the main path's N, Q and
+    M=16, K=512: each timed output against its plain version, and the
+    times beside their bounds, plain versions and library calls."""
+    import torch
+
+    from repro_torch.kernels import adc_scan as kadc
+    from repro_torch.kernels import adc_scan_fs as kadcfs
+    from repro_torch.kernels import hop_adc as khop
+    from repro_torch.kernels import hop_gather as khopg
+    from repro_torch.kernels import ops, ref
+    from repro_torch.pq import pack
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(97531)
+    m, k = 16, 512
+    errs = {"adc_scan_batch_i32": 0.0, "adc_scan_i32": 0.0, "hop_adc_i32": 0.0,
+            "hop_gather_i32": 0.0}
+
+    def note(kernel, e):
+        errs[kernel] = max(errs[kernel], e)
+
+    def rand_codes(shape, kk, dtype=torch.int32):
+        return torch.randint(0, kk, shape, generator=g, device=dev,
+                             dtype=torch.int32).to(dtype)
+
+    def rand_lut(shape):
+        return torch.rand(shape, generator=g, device=dev) * 20.0
+
+    def all_four(tag, codes, luts, ids, kernel_suffix):
+        """The four entry points on one (codes, LUTs, ids) set."""
+        sfx = kernel_suffix
+        got = ops.adc_scan_batch(codes, luts)
+        e = compare(f"adc_scan_batch{sfx} {tag}", got, ref.adc_scan_batch_ref(codes, luts),
+                    rtol=0.0, atol=0.0)
+        if sfx:
+            note("adc_scan_batch_i32", e)
+        e = compare(f"adc_scan{sfx} {tag}", ops.adc_scan(codes, luts[0]),
+                    ref.adc_scan_ref(codes, luts[0]), rtol=1e-5, atol=1e-4)
+        if sfx:
+            note("adc_scan_i32", e)
+        for mp in (0, codes.shape[1] // 2 + 1):
+            want = (ref.hop_adc_ref(codes[:, :mp], ids, luts[:, :mp]) if mp
+                    else ref.hop_adc_ref(codes, ids, luts))
+            e = compare(f"hop_adc{sfx} {tag} m_prefix={mp}",
+                        ops.hop_adc(codes, ids, luts, m_prefix=mp), want,
+                        rtol=1e-5, atol=1e-4)
+            if sfx:
+                note("hop_adc_i32", e)
+        rows = codes[ids.long()]
+        e = compare(f"hop_gather{sfx} {tag}", ops.hop_gather(rows, luts),
+                    ref.hop_gather_ref(rows, luts), rtol=1e-5, atol=1e-4)
+        if sfx:
+            note("hop_gather_i32", e)
+
+    # int32 codes: K=512 (the reference's own K > 256 case, N=600, M=4, and
+    # the main path's M=16), then M=64, K=1024 (a 256 KB LUT, two chunks);
+    # uint8 codes at M=208, K=256 (208 KB, two chunks)
+    for n, mm, kk, q in ((600, 4, 512, 3), (4099, m, k, 13), (3001, 64, 1024, 5)):
+        codes = rand_codes((n, mm), kk)
+        ids = torch.randint(0, n, (q, 64), generator=g, device=dev, dtype=torch.int32)
+        all_four(f"N={n} M={mm} K={kk} Q={q} (int32 codes, "
+                 f"{len(khop.subspace_chunks(mm, kk))} chunk(s))",
+                 codes, rand_lut((q, mm, kk)), ids, "_i32")
+    codes = rand_codes((2049, 208), 256, torch.uint8)
+    ids = torch.randint(0, 2049, (7, 64), generator=g, device=dev, dtype=torch.int32)
+    all_four("N=2049 M=208 K=256 Q=7 (uint8 codes, 2 chunks)", codes,
+             rand_lut((7, 208, 256)), ids, "")
+    # fs4 at M=128: the paired table passes 200 KB, two byte chunks, exact
+    for n, mm, q in ((3001, 128, 9), (4099, 201, 13)):
+        packed = pack.pack_codes(rand_codes((n, mm), 16))
+        luts = rand_codes((q, mm, 16), 256, torch.uint8)
+        compare(f"adc_scan_fs N={n} M={mm} Q={q} ({len(kadcfs.byte_chunks(packed.shape[1]))} "
+                f"byte chunks)", kadcfs.adc_scan_fs(packed, luts).double(),
+                ref.adc_scan_fs_acc(packed, luts).double(), rtol=0.0, atol=0.0)
+
+    # ---- the int32 variants at the main path's shapes: held against their
+    # plain versions on the timed inputs, then timed (the short ones by
+    # graph replay, L2-cold: rotated over fresh input sets) ----
+    codes_full = rand_codes((n_base, m), k)
+    codes_p = ops.pad_sentinel_row(codes_full)
+    luts = rand_lut((n_query, m, k))
+    ids = torch.randint(0, n_base + 1, (n_query, 64), generator=g, device=dev,
+                        dtype=torch.int32)
+    rows = []
+    aout = torch.empty((n_query, n_base), device=dev)
+    b_ms, b_by = bound(4 * codes_full.numel() + 4 * luts.numel() + 4 * aout.numel(),
+                       aout.numel() * m)
+    ms = cuda_ms(lambda: kadc.launch(codes_full, luts, aout), iters=5)
+    want = ref.adc_scan_batch_ref(codes_full, luts)
+    note("adc_scan_batch_i32", compare(
+        f"adc_scan_batch_i32 N={n_base} M={m} K={k} Q={n_query} (the timed output)",
+        aout, want, rtol=0.0, atol=0.0))
+    del aout
+    plain_ms = cuda_ms(lambda: ref.adc_scan_batch_ref(codes_full, luts), iters=2, warmup=1)
+    lib_ms, lib_err = library_time(codes_full, luts, want.T)
+    del want
+    rows.append(dict(
+        name="adc_scan_batch_i32", route="cuda", source="src/repro_torch/kernels/csrc/adc_scan.cu",
+        replaces="src/repro/kernels/adc_scan.py:131",
+        shape=f"codes ({n_base},{m}) int32 x luts ({n_query},{m},{k})",
+        max_abs_err=errs["adc_scan_batch_i32"], ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, library_err=lib_err,
+        library_call=LIBRARY_CALL))
+
+    hout = torch.empty(ids.shape, device=dev)
+    distinct = int(torch.unique(ids).numel())
+    b_ms, b_by = bound(4 * ids.numel() + 4 * distinct * m + 4 * luts.numel() + 4 * ids.numel(),
+                       ids.numel() * m)
+    sets = [(codes_p, ids, luts)] + [
+        (codes_p, torch.randint(0, n_base + 1, ids.shape, generator=g, device=dev,
+                                dtype=torch.int32), rand_lut(luts.shape))
+        for _ in range(cold_copies(4 * luts.numel() + 8 * ids.numel()
+                                   + touched_bytes(ids, 4 * m)) - 1)]
+    kern = lambda c, i, lt: khop.launch(c, i, lt, m, hout)
+    row = dict(
+        name="hop_adc_i32", route="cuda", source="src/repro_torch/kernels/csrc/hop_adc.cu",
+        replaces="src/repro/kernels/hop_adc.py:170",
+        shape=f"codes ({n_base + 1},{m}) int32, ids ({n_query},64), luts ({n_query},{m},{k})",
+        cold_sets=len(sets), l2_warm_ms=graph_ms(lambda: kern(*sets[0]), iters=200))
+    note("hop_adc_i32", compare(f"hop_adc_i32 N+1={n_base + 1} M={m} K={k} Q={n_query} "
+                                "R'=64 (the timed output)", hout,
+                                ref.hop_adc_ref(codes_p, ids, luts), rtol=1e-5, atol=1e-4))
+    row.update(ms=graph_ms(rotating(kern, sets), iters=200),
+               plain_ms=graph_ms(rotating(ref.hop_adc_ref, sets), iters=50),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None, library_call=None)
+    rows.append(row)
+    del sets
+
+    sout = torch.empty((n_base,), device=dev)
+    b_ms, b_by = bound(4 * codes_full.numel() + 4 * luts[0].numel() + 4 * sout.numel(),
+                       codes_full.numel())
+    sets = [(codes_full, luts[0])] + [
+        (rand_codes((n_base, m), k), rand_lut((m, k)))
+        for _ in range(cold_copies(4 * codes_full.numel() + 4 * n_base) - 1)]
+    kern = lambda c, lt: kadc.launch_query(c, lt, sout)
+    row = dict(
+        name="adc_scan_i32", route="cuda", source="src/repro_torch/kernels/csrc/adc_scan.cu",
+        replaces="src/repro/kernels/adc_scan.py:74",
+        shape=f"codes ({n_base},{m}) int32 x lut ({m},{k}), one query",
+        cold_sets=len(sets), l2_warm_ms=graph_ms(lambda: kern(*sets[0]), iters=100))
+    want = ref.adc_scan_ref(codes_full, luts[0])
+    note("adc_scan_i32", compare(f"adc_scan_i32 N={n_base} M={m} K={k} (the timed output)",
+                                 sout, want, rtol=1e-5, atol=1e-4))
+    row.update(ms=graph_ms(rotating(kern, sets), iters=100),
+               plain_ms=cuda_ms(rotating(ref.adc_scan_ref, sets), iters=10),
+               bound_ms=b_ms, bound_by=b_by, library_call=LIBRARY_CALL)
+    row["library_ms"], row["library_err"] = library_time(
+        codes_full, luts[0], want, graph=True, more=sets[1:])
+    rows.append(row)
+    del sets, want
+
+    rows_g = codes_p[ids.long()]
+    gout = torch.empty(ids.shape, device=dev)
+    b_ms, b_by = bound(4 * rows_g.numel() + 4 * luts.numel() + 4 * gout.numel(),
+                       rows_g.numel())
+    sets = [(rows_g, luts)] + [
+        (rand_codes(rows_g.shape, k), rand_lut(luts.shape))
+        for _ in range(cold_copies(4 * rows_g.numel() + 4 * luts.numel()
+                                   + 4 * gout.numel()) - 1)]
+    kern = lambda c, lt: khopg.launch(c, lt, gout)
+    row = dict(
+        name="hop_gather_i32", route="cuda", source="src/repro_torch/kernels/csrc/hop_gather.cu",
+        replaces="src/repro/kernels/hop_gather.py:55",
+        shape=f"codes ({n_query},64,{m}) int32 x luts ({n_query},{m},{k}), one beam round",
+        cold_sets=len(sets), l2_warm_ms=graph_ms(lambda: kern(*sets[0]), iters=200))
+    want = ref.hop_gather_ref(rows_g, luts)
+    note("hop_gather_i32", compare(f"hop_gather_i32 Q={n_query} R=64 M={m} K={k} "
+                                   "(the timed output)", gout, want, rtol=1e-5, atol=1e-4))
+    row.update(ms=graph_ms(rotating(kern, sets), iters=200),
+               plain_ms=graph_ms(rotating(ref.hop_gather_ref, sets), iters=50),
+               bound_ms=b_ms, bound_by=b_by, library_call=LIBRARY_CALL)
+    row["library_ms"], row["library_err"] = library_time(
+        rows_g, luts, want, graph=True, more=sets[1:])
+    rows.append(row)
+    del sets, want
+    for row in rows:
+        row["max_abs_err"] = errs[row["name"]]
+    for row in rows:
+        log(f"[time] {row['name']} {row['shape']}: kernel {row['ms']:.4f} ms{l2_note(row)}, plain "
+            f"{row['plain_ms']:.4f} ms, library {row['library_ms']}, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return {row["name"]: row for row in rows}
 
 
 # --------------------------------------------------------------------------
@@ -1239,6 +1537,27 @@ def plain_hop_adc_fs(packed, ids, luts_u8, scale, bias, *, m_prefix=0):
     return ref.dequant(acc, scale, bias, m_eff)
 
 
+class uncounted:
+    """Within the block, kernel launches are added to ``excluded`` (kernel
+    name → launches), which the caller subtracts from the phase's counts:
+    a microbenchmark inside a counted phase is not the main path's run."""
+
+    def __init__(self, excluded: dict):
+        self.excluded = excluded
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self._before = ops.launch_counts()
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+
+        for k, v in ops.launch_counts().items():
+            self.excluded[k] = self.excluded.get(k, 0) + v - self._before[k]
+        return False
+
+
 class plain_routing:
     """Within the block, every beam round and seed probe of the engines
     scores through the plain versions (on CUDA tensors) instead of the
@@ -1423,6 +1742,257 @@ def adaptive_path(ds, gt, graph, u8_model, u8_codes, res_main, fs4_model, fs4_pa
 
 
 # --------------------------------------------------------------------------
+# phase 12: the streaming index under churn, on phase 5's base and graph
+# --------------------------------------------------------------------------
+
+# An update stream of re-embedded catalogue items: each round tombstones
+# STREAM_BATCH random live base rows (numpy seed 0) and inserts the same
+# vectors as new rows, into a delta of STREAM_CAPACITY slots.
+STREAM_CAPACITY = 50_000
+STREAM_BATCH = 12_500
+STREAM_ROUNDS = 4
+RYW_CHUNK = 2_500     # read-your-writes queries per search call
+
+
+class plain_streaming(plain_routing):
+    """:class:`plain_routing` for the streaming engine: inside the block the
+    delta arm's ``ops.adc_scan_batch`` / ``ops.adc_scan_fs`` are their plain
+    versions too (``search/engine._bulk_adc`` calls them through ``ops``)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops, ref
+
+        super().__enter__()
+        self._saved_all = ops.adc_scan_batch, ops.adc_scan_fs
+        ops.adc_scan_batch = lambda codes, luts: ref.adc_scan_batch_ref(codes, luts)
+        ops.adc_scan_fs = lambda packed, lut, scale, bias: ref.adc_scan_fs_ref(
+            packed, lut, scale, bias)
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+
+        ops.adc_scan_batch, ops.adc_scan_fs = self._saved_all
+        return super().__exit__(*exc)
+
+
+def stream_path(ds, graph, u8_model, u8_codes, fs4_model, fs4_packed, work_dir: str) -> dict:
+    """Phase 12: ``StreamingEngine`` at full width on phase 5's base, R=64
+    graph, u8 codes and PQ model (then phase 6's fs4 codes, then a K=512
+    int32-code quantizer). Per round: delete, insert, a 1000-query search
+    at h=32, k=10 scored against ``live_ground_truth``, QPS, the delta
+    arm's own time, ``n_live``, resident MB. u8: a refreshed
+    consolidation (``RefreshConfig()``) after round 2, a plain one with a
+    snapshot and ``StreamingEngine.restore`` after round 4. Checks (a)–(f)
+    of the module docstring."""
+    import numpy as np
+    import torch
+
+    from repro_torch.index import BaseSegment, RefreshConfig, StreamingEngine
+    from repro_torch.index import refresh as refresh_mod
+    from repro_torch.index.engine import _merge_delta
+    from repro_torch.index.segment import encode_codes
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.recsys import score_candidates_adc
+    from repro_torch.pq import train_pq
+    from repro_torch.search import beam
+    from repro_torch.search.engine import _bulk_adc, topk_lower
+    from repro_torch.search.metrics import live_ground_truth, measure_qps, recall_at_k
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    q = ds.queries
+    n, dim = ds.base.shape
+    times: dict[str, list] = {}
+    rounds: list[dict] = []
+    timing_launches: dict[str, int] = {}
+    checks = {"a_no_tombstone": True, "b_read_your_writes_ties": 0, "c_same_top10": [],
+              "d_restore_bit_equal": None, "e_distortion": None, "f_old2new": []}
+
+    def clock(label, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.setdefault(label, []).append(time.perf_counter() - t0)
+        return out
+
+    def run(layout, model, codes, *, consolidations, n_rounds=STREAM_ROUNDS):
+        eng = StreamingEngine(BaseSegment(graph=graph, codes=codes, vectors=ds.base,
+                                          layout=layout), model,
+                              delta_capacity=STREAM_CAPACITY, device=ds.base.device)
+        all_x = torch.zeros((n + STREAM_CAPACITY, dim), device=ds.base.device)
+        all_x[:n] = ds.base
+        live = np.zeros(n + STREAM_CAPACITY, bool)
+        live[:n] = True
+        rng = np.random.default_rng(0)
+
+        def renumber(stats):
+            nonlocal all_x, live
+            o2n = stats["old2new"]
+            ok = bool(np.array_equal(o2n >= 0, live[:o2n.shape[0]])
+                      and np.array_equal(np.sort(o2n[o2n >= 0]), np.arange(stats["n"])))
+            checks["f_old2new"].append(ok)
+            check(ok, f"(f) {layout} generation {stats['generation']}: old2new does not "
+                      f"map exactly the live ids")
+            new_live = np.zeros(stats["n"] + STREAM_CAPACITY, bool)
+            new_live[o2n[np.flatnonzero(live)]] = True
+            live = new_live
+            all_x = torch.cat([eng.base.vectors, torch.zeros((STREAM_CAPACITY, dim),
+                                                             device=ds.base.device)])
+
+        for i in range(n_rounds):
+            dead = rng.choice(np.flatnonzero(live[:eng.base.n]), STREAM_BATCH, replace=False)
+            vecs = eng.base.vectors[torch.from_numpy(dead).to(ds.base.device)]
+            clock(f"{layout} delete", lambda: eng.delete(dead))
+            live[dead] = False
+            gids = clock(f"{layout} insert", lambda: eng.insert(vecs))
+            all_x[torch.from_numpy(gids).to(ds.base.device)] = vecs
+            live[gids] = True
+            gt = live_ground_truth(all_x, np.flatnonzero(live), q, 10)
+            qps, res = measure_qps(lambda qq: eng.search(qq, k=10, h=32), q)
+            # the delta arm alone (bulk scan + merge top-k) on this batch's
+            # LUTs and base-arm output, by CUDA events
+            luts = eng.lut_fn(q)
+            base_res = eng.search(q, k=32, h=32, skip_delta=True)
+            with uncounted(timing_launches):
+                delta_ms = cuda_ms(lambda: _merge_delta(
+                    base_res.ids, base_res.dists, eng._delta_codes_dev, luts, eng._live_dev,
+                    k=10, n_base=eng.base.n), iters=5)
+            del luts, base_res
+            ids = res.ids.cpu().numpy()
+            # (a) no tombstoned id is ever returned
+            ok_a = not eng.tombstones.contains(ids[ids >= 0]).any()
+            checks["a_no_tombstone"] &= ok_a
+            check(ok_a, f"(a) {layout} round {i}: a tombstoned id was returned")
+            # (b) read-your-writes: each inserted vector, queried as itself,
+            # returns its new id at rank 0 — or, on an exact ADC tie with
+            # its own row, an earlier delta row (delta lanes first, in slot
+            # order: the merge's documented tie order)
+            ryw = [eng.search(vecs[s:s + RYW_CHUNK], k=1, h=32)
+                   for s in range(0, len(gids), RYW_CHUNK)]
+            top = torch.cat([r.ids[:, 0] for r in ryw]).cpu().numpy()
+            miss = np.flatnonzero(top != gids)
+            if miss.size:
+                mt = torch.from_numpy(miss).to(ds.base.device)
+                own = _bulk_adc(eng._delta_codes_dev[torch.from_numpy(gids[miss] - eng.base.n)
+                                                     .to(ds.base.device)],
+                                eng.lut_fn(vecs[mt])).diagonal()
+                d_top = torch.cat([r.dists[:, 0] for r in ryw])[mt]
+                slot_t = top[miss] - eng.base.n
+                tie = ((slot_t >= 0) & (slot_t < gids[miss] - eng.base.n)
+                       & (d_top == own).cpu().numpy())
+                check(bool(tie.all()), f"(b) {layout} round {i}: {int((~tie).sum())} inserted "
+                                       f"vectors do not return their own id at rank 0")
+                checks["b_read_your_writes_ties"] += int(miss.size)
+            # (c) the kernel-routed top-10 equals the plain-routed one
+            with plain_streaming():
+                res_p = eng.search(q, k=10, h=32)
+            same = float((res_p.ids == res.ids).all(dim=1).float().mean())
+            checks["c_same_top10"].append(same)
+            check(same >= 0.99, f"(c) {layout} round {i}: kernel- and plain-routed "
+                                f"top-10 agree on {same:.4f} of queries")
+            row = dict(layout=layout, round=i, recall=recall_at_k(res.ids, gt, 10), qps=qps,
+                       delta_ms=delta_ms, delta_share=delta_ms / (1e3 * q.shape[0] / qps),
+                       n_live=eng.n_live, generation=eng.generation,
+                       resident_mb=eng.memory_bytes() / 1e6,
+                       hops=float(res.hops.float().mean()),
+                       n_dist=float(res.n_dist.float().mean()), same_top10_plain=same)
+            rounds.append(row)
+            log(f"[stream] {layout} round {i}: recall@10={row['recall']:.4f} qps={qps:.1f} "
+                f"(delta arm {delta_ms:.3f} ms, {row['delta_share']:.3f} of the batch) "
+                f"live={row['n_live']} gen={row['generation']} "
+                f"resident={row['resident_mb']:.1f}MB hops={row['hops']:.1f} "
+                f"n_dist={row['n_dist']:.1f} same-top10-plain={same:.4f}")
+            if consolidations and i == 1:
+                # consolidate() looks refresh_quantizer up at call time: a
+                # timing wrapper there clocks the refresh inside it
+                real_refresh = refresh_mod.refresh_quantizer
+                refresh_mod.refresh_quantizer = lambda *a, **kw: clock(
+                    "refresh", lambda: real_refresh(*a, **kw))
+                try:
+                    stats = clock("consolidate refreshed", lambda: eng.consolidate(
+                        refresh=RefreshConfig()))
+                finally:
+                    refresh_mod.refresh_quantizer = real_refresh
+                rep = stats["refresh"]
+                checks["e_distortion"] = (rep["distortion_before"], rep["distortion_after"])
+                log(f"[stream] consolidated → generation {stats['generation']}: {stats['n']} "
+                    f"rows ({stats['dropped']} dropped, {stats['folded']} folded in), "
+                    f"codebooks refreshed (live distortion {rep['distortion_before']:.3f} → "
+                    f"{rep['distortion_after']:.3f}) in "
+                    f"{times['consolidate refreshed'][-1]:.2f} s, "
+                    f"the refresh {times['refresh'][-1]:.2f} s of it")
+                check(rep["distortion_after"] <= rep["distortion_before"],
+                      "(e) the refresh raised the live distortion")
+                renumber(stats)
+        if consolidations:
+            stats = clock("consolidate + snapshot", lambda: eng.consolidate(
+                ckpt_dir=work_dir, keep=2))
+            log(f"[stream] consolidated → generation {stats['generation']}: {stats['n']} "
+                f"rows ({stats['dropped']} dropped, {stats['folded']} folded in), "
+                f"snapshot at {work_dir} in {times['consolidate + snapshot'][-1]:.2f} s")
+            renumber(stats)
+            before = eng.search(q, k=10, h=32)
+            restored = clock("restore", lambda: StreamingEngine.restore(
+                work_dir, delta_capacity=STREAM_CAPACITY, device=ds.base.device))
+            after = restored.search(q, k=10, h=32)
+            same = bool(torch.equal(before.ids, after.ids)
+                        and torch.equal(before.dists, after.dists))
+            checks["d_restore_bit_equal"] = same
+            log(f"[stream] restored generation {restored.generation} ({restored.n_live} live "
+                f"rows) in {times['restore'][-1]:.2f} s; search bit-equal: {same}")
+            check(same, "(d) the restored engine's search differs from the pre-snapshot one")
+            del restored
+        return eng
+
+    eng = run("u8", u8_model, u8_codes, consolidations=True)
+    del eng
+    eng = run("fs4", fs4_model, fs4_packed, consolidations=False)
+    del eng
+    # K=512: int32 codes through the same graph, one round
+    wide = clock("train_pq K=512", lambda: train_pq(
+        ds.train, 16, 512, generator=torch.Generator().manual_seed(5), iters=5,
+        device=ds.base.device))
+    wide_codes = encode_codes(wide, ds.base, "u8")
+    check(wide_codes.dtype == torch.int32, "K=512 codes are not int32")
+    eng = run("u8", wide, wide_codes, consolidations=False, n_rounds=1)
+    rounds[-1]["layout"] = "u8 K=512 int32"
+    # the same codes down the gather route (phase 7's) and the retrieval
+    # scorer's (phase 9's): the other two int32 variants on real work
+    luts = eng.lut_fn(q)
+    res_g = beam.beam_search(graph.neighbors, graph.medoid, luts,
+                             lambda lt, ids: ops.hop_gather(eng._codes_p[ids], lt),
+                             h=32, max_steps=512)
+    res_a = beam.beam_search(graph.neighbors, graph.medoid, luts,
+                             beam.make_adc_dist_fn(eng._codes_p), h=32, max_steps=512)
+    check(torch.equal(res_g.ids, res_a.ids) and torch.equal(res_g.dists, res_a.dists),
+          "K=512: the hop_gather-routed search differs from the hop_adc-routed one")
+    top = [score_candidates_adc(luts[i], wide_codes, k=100)[1] for i in range(10)]
+    plain = [topk_lower(ref.adc_scan_ref(wide_codes, luts[i])[None], 100)[1][0]
+             for i in range(10)]
+    same = all(torch.equal(a.long(), b) for a, b in zip(top, plain))
+    log(f"[stream] K=512 int32 codes: hop_gather-routed search equals hop_adc-routed; "
+        f"score_candidates_adc top-100 equal to the plain scan's on 10 queries: {same}")
+    check(same, "K=512: score_candidates_adc differs from the plain scan")
+    del eng, wide_codes, luts, res_g, res_a
+    counts = {k: v - timing_launches.get(k, 0) for k, v in ops.launch_counts().items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    summary = {k: (sum(v), len(v)) for k, v in times.items()}
+    log(f"[stream] times (s, total over calls): "
+        + ", ".join(f"{k} {t:.2f}/{c}" for k, (t, c) in summary.items()))
+    log(f"[stream] launches: {counts}; peak device memory {peak_gb:.2f} GiB; "
+        f"checks {checks}")
+    for name in ("pq_pairwise", "hop_adc", "adc_scan_batch", "hop_adc_fs", "adc_scan_fs",
+                 "hop_adc_i32", "adc_scan_batch_i32", "adc_scan_i32", "hop_gather_i32"):
+        check(counts[name] > 0, f"kernel {name} was not launched by the streaming phase")
+    for row in rounds:
+        check(math.isfinite(row["recall"]) and row["qps"] > 0,
+              f"{row['layout']} round {row['round']}: recall or QPS not finite")
+    return dict(rounds=rounds, times=times, checks=checks, launches=counts,
+                peak_gib=peak_gb, capacity=STREAM_CAPACITY, batch=STREAM_BATCH)
+
+
+# --------------------------------------------------------------------------
 # phase 11: the train -> checkpoint -> serve command lines
 # --------------------------------------------------------------------------
 
@@ -1441,6 +2011,10 @@ SERVE_LINE = re.compile(
     r"^\[serve\] (?P<scenario>[\w-]+): recall@10=(?P<recall>[\d.]+) qps=(?P<qps>[\d.]+) "
     r"hops=(?P<hops>[\d.]+) rounds=(?P<rounds>[\d.]+) truncated=(?P<truncated>[\d.]+) "
     r"(?P<degraded>DEGRADED )?resident=(?P<resident_mb>[\d.]+)MB$", re.M)
+STREAM_LINE = re.compile(
+    r"^\[serve\] streaming/(?P<tag>\w+): recall@10=(?P<recall>[\d.]+) qps=(?P<qps>[\d.]+) "
+    r"live=(?P<live>\d+) gen=(?P<gen>\d+) resident=(?P<resident_mb>[\d.]+)MB "
+    r"truncated=(?P<truncated>[\d.]+)$", re.M)
 CLI_WIDTHS = ["--graph-r", "64", "--graph-l", "128"]
 TRAIN_ARGS = ["--dataset", "sift", "--m", "16", "--k", "256", *CLI_WIDTHS,
               "--steps", "200", "--checkpoint-every", "50", "--fail-at-step", "120"]
@@ -1502,13 +2076,37 @@ def cli_path() -> dict:
             serve_args + ["--scenario", "sharded"], 600)
         add(counts)
         serve["sharded"] = parse_serve(out, "sharded")
+        out, counts, walls["serve_streaming"] = run_cli(
+            "serve streaming", "repro_torch.launch.serve",
+            serve_args + ["--scenario", "streaming", "--churn", "0.1", "--churn-rounds", "4",
+                          "--refresh-every", "2"], 600)
+        add(counts)
+        serve["streaming"] = parse_streaming(out)
     for name in ("pq_pairwise", "hop_adc", "adc_scan_batch"):
         check(launches.get(name, 0) > 0, f"kernel {name} was not launched by the CLIs")
-    full = {k: launches.get(k, 0) for k in ("pq_pairwise", "hop_adc", "adc_scan_batch",
-                                            "hop_adc_fs", "adc_scan_fs", "adc_scan",
-                                            "hop_gather")}
+    from repro_torch.kernels import ops
+
+    full = {k: launches.get(k, 0) for k in ops.launch_counts()}
     log(f"[cli] launches: {full}; wall {walls}")
     return dict(walls=walls, serve=serve, launches=full)
+
+
+def parse_streaming(out: str) -> dict:
+    """The streaming scenario's per-round lines (generation 0 = the 90k
+    rows the hold-out leaves of the 100k base) and its two refreshed
+    consolidations."""
+    rows = {m["tag"]: {k: float(v) for k, v in m.groupdict().items() if k != "tag"}
+            for m in STREAM_LINE.finditer(out)}
+    want = ("round0", "round1", "refreshed1", "round2", "round3", "consolidated")
+    check(tuple(rows) == want, f"serve streaming: rounds {tuple(rows)} != {want}")
+    check("[serve] streaming: base 90000 rows (gen 0)" in out,
+          "serve streaming: generation 0 is not the 90k hold-out base")
+    check(out.count("codebooks refreshed (live distortion") == 2,
+          "serve streaming: not two refreshed consolidations")
+    for tag, row in rows.items():
+        check(math.isfinite(row["recall"]) and row["qps"] > 0,
+              f"serve streaming/{tag}: recall or qps not finite")
+    return rows
 
 
 def parse_serve(out: str, scenario: str) -> dict:
@@ -1567,6 +2165,7 @@ def main() -> int:
     kernels.update(fs4_parity_and_timing(n_base, 1000))
     scorer_rows, backward = scorer_parity_and_timing(n_base, 1000)
     kernels.update(scorer_rows)
+    kernels.update(wide_parity_and_timing(n_base, 1000))
     log(f"[parity] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     small_reference()
@@ -1590,6 +2189,11 @@ def main() -> int:
     phases["adaptive"] = adaptive_path(ds, gt, graph, pq_model, pq_codes, res_main,
                                        fs4_model, fs4_packed)
     log(f"[adaptive] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="rpq_stream_") as d:
+        phases["stream"] = stream_path(ds, graph, pq_model, pq_codes, fs4_model,
+                                       fs4_packed, d)
+    log(f"[stream] done in {time.perf_counter() - t0:.1f} s")
     del ds, gt, graph, pq_codes, fs4_packed, res_main
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

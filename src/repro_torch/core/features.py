@@ -1,7 +1,6 @@
 """Sampling-based feature extractor (paper §5, Algorithms 1 and 2).
 
-Port of ``repro/core/features.py`` (the ``tombstones`` churn path waits for
-the streaming slice).
+Port of ``repro/core/features.py``.
 
 Neighborhood features (Alg. 1, n-propagation sampling), batched: each
 anchor's ≤ n-hop neighborhood is gathered from the padded adjacency,
@@ -15,6 +14,13 @@ Routing features (Alg. 2), batched: real beam searches with the current
 quantizer's ADC distances record the ranked candidate set at every round
 (``beam_search_trace``), and each set is labelled with its candidate that
 is truly closest to the query in the original space.
+
+Sampling under churn (the streaming index's codebook refresh): both
+samplers take an optional ``tombstones`` bitset (the deleted-id words of
+``index.segment.Tombstones``). No dead vertex reaches a feature: triplet
+neighborhoods and traced routing beams mask dead ids to the sentinel, a
+dead anchor invalidates its triplet, and the routing label is the
+exact-distance argmin over the live candidates only.
 """
 
 from __future__ import annotations
@@ -51,6 +57,15 @@ class RoutingBatch(NamedTuple):
 # Alg. 1 — n-propagation sampling
 # --------------------------------------------------------------------------
 
+def _dead_fn(tombstones, n: int, device) -> Callable:
+    """ids → bool "tombstoned" mask (all False without a bitset). Ids
+    outside [0, n) — the sentinel, padding — are never dead."""
+    if tombstones is None:
+        return lambda ids: torch.zeros(ids.shape, dtype=torch.bool, device=ids.device)
+    ts = beam.as_bitset(tombstones, device)
+    return lambda ids: beam._is_dead(ts, ids.long(), n)
+
+
 def _gather_hops(neighbors: torch.Tensor, v: torch.Tensor,
                  n_hops: int) -> torch.Tensor:
     """(B,) anchors → (B, R + R² + ...) candidate ids, duplicates included,
@@ -67,10 +82,11 @@ def _gather_hops(neighbors: torch.Tensor, v: torch.Tensor,
 
 
 def rank_neighborhoods(graph: Graph, x: torch.Tensor, anchors: torch.Tensor, *,
-                       n_hops: int = 2, keep: Optional[int] = None
-                       ) -> tuple[torch.Tensor, torch.Tensor]:
+                       n_hops: int = 2, keep: Optional[int] = None,
+                       tombstones=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Alg. 1's deterministic half: each anchor's distinct ≤ n-hop
-    neighbors (itself excluded), ranked by exact distance to it.
+    neighbors (itself and tombstoned vertices excluded), ranked by exact
+    distance to it.
 
     Returns (ranked (B, keep) int64 ids — the nearest first, sentinel n
     after the last valid one — and n_valid (B,) int64). Ties keep the
@@ -81,11 +97,12 @@ def rank_neighborhoods(graph: Graph, x: torch.Tensor, anchors: torch.Tensor, *,
     c = sum(graph.degree ** (i + 1) for i in range(n_hops))
     keep = c if keep is None else min(keep, c)
     chunk = max(1, TRIPLET_CHUNK_BYTES // (c * d * x.element_size()))
+    dead = _dead_fn(tombstones, n, x.device)
     ranked, n_valid = [], []
     for s in range(0, anchors.shape[0], chunk):
         v = anchors[s:s + chunk]
         cand = _gather_hops(graph.neighbors, v, n_hops)
-        cand = torch.where(cand == v[:, None], n, cand)
+        cand = torch.where((cand == v[:, None]) | dead(cand), n, cand)
         # dedup: sort by id, keep the first of each run
         sc = torch.sort(cand, dim=1, stable=True).values
         dup = torch.zeros_like(sc, dtype=torch.bool)
@@ -117,22 +134,28 @@ def uniform_draws(generator: Optional[torch.Generator]) -> Callable:
 def sample_triplets(graph: Graph, x: torch.Tensor, anchors: torch.Tensor, *,
                     n_hops: int = 2, k_pos: int = 10, k_neg: int = 30,
                     generator: Optional[torch.Generator] = None,
-                    draws: Optional[Callable] = None) -> TripletBatch:
+                    draws: Optional[Callable] = None,
+                    tombstones=None) -> TripletBatch:
     """Batched Alg. 1. anchors: (B,) vertex ids.
 
     ``draws(pos_span, neg_span) → (pos_idx, neg_off)`` picks, per anchor, a
     positive rank in [0, max(pos_span, 1)) and a negative offset in
-    [0, max(neg_span, 1)); by default uniform from ``generator``."""
+    [0, max(neg_span, 1)); by default uniform from ``generator``.
+    ``tombstones``: dead vertices never rank as positives or negatives, and
+    a dead anchor gives ``valid=False`` (callers draw anchors from the live
+    set; this is the backstop)."""
     draws = draws or uniform_draws(generator)
     ranked, n_valid = rank_neighborhoods(graph, x, anchors, n_hops=n_hops,
-                                         keep=k_pos + k_neg)
+                                         keep=k_pos + k_neg,
+                                         tombstones=tombstones)
     pos_hi = torch.clamp(n_valid, max=k_pos)
     neg_hi = torch.clamp(n_valid, max=k_pos + k_neg)
     pos_idx, neg_off = draws(pos_hi, neg_hi - pos_hi)
     neg_idx = torch.clamp(pos_hi + neg_off, max=ranked.shape[1] - 1)
     vpos = ranked.gather(1, pos_idx[:, None].long())[:, 0]
     vneg = ranked.gather(1, neg_idx[:, None].long())[:, 0]
-    valid = (n_valid >= 2) & (neg_hi > pos_hi)
+    valid = ((n_valid >= 2) & (neg_hi > pos_hi)
+             & ~_dead_fn(tombstones, graph.n, x.device)(anchors))
     return TripletBatch(v=anchors.long(), vpos=vpos, vneg=vneg, valid=valid)
 
 
@@ -143,19 +166,27 @@ def sample_triplets(graph: Graph, x: torch.Tensor, anchors: torch.Tensor, *,
 @torch.no_grad()
 def sample_routing(graph: Graph, x: torch.Tensor, queries: torch.Tensor,
                    codes: torch.Tensor, lut_fn: Callable, *, h: int = 16,
-                   trace_len: int = 48, max_steps: int = 128) -> RoutingBatch:
+                   trace_len: int = 48, max_steps: int = 128,
+                   tombstones=None, entry=None) -> RoutingBatch:
     """Batched Alg. 2 with exact-distance next-hop labels, routed from the
-    medoid.
+    medoid (or ``entry``, e.g. the streaming engine's re-anchored live
+    vertex).
 
     codes: (N, M) CURRENT compact codes of the base vectors (re-extract when
-    the quantizer moves, paper Fig. 2)."""
+    the quantizer moves, paper Fig. 2). ``tombstones``: the beams route
+    around dead vertices, and every traced candidate is re-scrubbed (a
+    rescued dead entry, an unfilled beam's dead slots), so each label is a
+    live vertex."""
     n = graph.n
     dist_fn = beam.make_adc_dist_fn(kops.pad_sentinel_row(codes))
-    tr = beam.beam_search_trace(graph.neighbors, graph.medoid, lut_fn(queries),
-                                dist_fn, h=h, max_steps=max_steps,
-                                trace_len=trace_len)
+    tr = beam.beam_search_trace(graph.neighbors,
+                                graph.medoid if entry is None else entry,
+                                lut_fn(queries), dist_fn, h=h,
+                                max_steps=max_steps, trace_len=trace_len,
+                                tombstones=tombstones)
     nq = queries.shape[0]
     cand = tr.beam_ids.reshape(nq * trace_len, h).long()
+    cand = torch.where(_dead_fn(tombstones, n, queries.device)(cand), n, cand)
     hop_valid = tr.hop_valid.reshape(nq * trace_len)
     qrep = torch.repeat_interleave(queries, trace_len, dim=0)
     cv = x[torch.where(cand == n, 0, cand)]

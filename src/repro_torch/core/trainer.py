@@ -10,16 +10,19 @@ alternates:
 
 Every random draw of step ``s`` comes from generators seeded by
 (seed, s, purpose), the counterpart of JAX's ``fold_in(key, step)``: a run
-resumed at step s re-derives the draws of the uninterrupted run.
-``data_parallel``, ``compress_grads`` and ``tombstones`` of the reference
-wait for later slices.
+resumed at step s re-derives the draws of the uninterrupted run; a test can
+hand in every draw of a step instead (``fit(draws=)``, :class:`StepDraws`).
+``fit(tombstones=)`` is the streaming index's codebook-refresh path: anchors
+and routing queries come from live vertices only, and the bitset threads
+into both samplers. ``data_parallel`` and ``compress_grads`` of the
+reference wait for queue A item 14.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -32,6 +35,7 @@ from repro_torch.device import resolve_device
 from repro_torch.graphs.adjacency import Graph
 from repro_torch.pq import base as pqbase
 from repro_torch.pq.pq import train_pq
+from repro_torch.search import beam
 
 
 @dataclasses.dataclass
@@ -72,6 +76,49 @@ def seeded_generator(device, *entropy: int) -> torch.Generator:
 
 # purposes of a step's generators, as the reference's five key splits
 POOL, ANCHORS, TRIPLETS, SUBSAMPLE, NOISE = range(5)
+
+
+class StepDraws(NamedTuple):
+    """Every random draw of one ``fit`` step, for ``fit(draws=)``."""
+    pool: Callable          # () → (routing_pool_queries,) positions among the live ids
+    anchors: torch.Tensor   # (triplet_batch,) positions among the live ids
+    triplets: Callable      # sample_triplets' ``draws``
+    subsample: Callable     # n_valid (0-d tensor) → (routing_batch,) indices
+    noise: object           # the joint loss's (neighborhood, routing) Gumbel
+                            # noise, or a torch.Generator to draw it from
+
+
+def live_ids_of(tombstones, n: int) -> np.ndarray:
+    """Ids in [0, n) whose bit is clear in ``tombstones`` (uint32 words, as
+    ``index.segment.Tombstones`` keeps them), ascending; all of them when
+    there is no bitset."""
+    ids = np.arange(n, dtype=np.int64)
+    if tombstones is None:
+        return ids
+    words = np.asarray(tombstones.cpu() if isinstance(tombstones, torch.Tensor)
+                       else tombstones).astype(np.uint32)
+    dead = ((words[ids >> 5] >> (ids & 31).astype(np.uint32)) & 1).astype(bool)
+    return ids[~dead]
+
+
+def _generator_draws(dev, seed: int, step: int, n_live: int,
+                     tcfg: "TrainConfig", sample_pool: bool) -> StepDraws:
+    """A step's draws from the generators of (seed, step, purpose): a pool
+    permutation (with replacement when fewer live ids than pool queries
+    under churn) and uniform anchors, triplets and subsample indices."""
+    gens = [seeded_generator(dev, seed, step, purpose) for purpose in range(5)]
+    p = tcfg.routing_pool_queries
+    if sample_pool and n_live < p:
+        pool = lambda: torch.randint(0, n_live, (p,), generator=gens[POOL], device=dev)
+    else:
+        pool = lambda: torch.randperm(n_live, generator=gens[POOL], device=dev)[:p]
+    anchors = torch.randint(0, n_live, (tcfg.triplet_batch,),
+                            generator=gens[ANCHORS], device=dev)
+    return StepDraws(
+        pool=pool, anchors=anchors, triplets=F.uniform_draws(gens[TRIPLETS]),
+        subsample=lambda nvalid: F.uniform_draws(gens[SUBSAMPLE])(
+            nvalid.expand(tcfg.routing_batch))[0],
+        noise=gens[NOISE])
 
 
 def init_rpq(cfg: Q.RPQConfig, x: torch.Tensor, *, generator: torch.Generator,
@@ -133,6 +180,7 @@ def fit(cfg: Q.RPQConfig, tcfg: TrainConfig, x: torch.Tensor, graph: Graph, *,
         seed: int = 0, params: Optional[Q.RPQParams] = None,
         opt_state: Optional[OptState] = None, start_step: int = 0,
         checkpoint_cb: Optional[Callable] = None, verbose: bool = True,
+        tombstones=None, draws: Optional[Callable] = None,
         device=None) -> TrainState:
     """End-to-end RPQ training (paper Fig. 2) on ``device`` (default
     ``cuda``). Returns the final TrainState.
@@ -140,7 +188,15 @@ def fit(cfg: Q.RPQConfig, tcfg: TrainConfig, x: torch.Tensor, graph: Graph, *,
     ``graph`` must index the rows of ``x`` (graph.n == N): the features
     gather rows by graph id. ``params=`` warm-starts (default: k-means PQ at
     R = I); ``opt_state=`` and ``start_step=`` resume.
-    ``checkpoint_cb(step, params, opt_state)`` runs after every step."""
+    ``checkpoint_cb(step, params, opt_state)`` runs after every step.
+
+    ``tombstones`` (uint32 deleted-id words over [0, N), the streaming
+    index's layout) makes the feature loop churn-aware: triplet anchors and
+    routing queries are drawn from live vertices only, and the bitset
+    threads into both samplers, so no dead id reaches a loss term; every
+    vertex dead raises. ``draws(step, n_live) → StepDraws`` replaces the
+    step's generator draws (the pool and anchor positions index the live
+    ids)."""
     dev = resolve_device(device)
     x = x.to(dev, torch.float32)
     n = x.shape[0]
@@ -148,6 +204,12 @@ def fit(cfg: Q.RPQConfig, tcfg: TrainConfig, x: torch.Tensor, graph: Graph, *,
         raise ValueError(f"fit: the graph indexes {graph.n} vertices but x has "
                          f"{n} rows; build the graph over the training rows")
     graph = graph.to(dev)
+    live = live_ids_of(tombstones, n)
+    if live.size == 0:
+        raise ValueError("fit: every vertex is tombstoned — nothing live to "
+                         "sample features from")
+    live_ids = torch.from_numpy(live).to(dev)
+    ts = None if tombstones is None else beam.as_bitset(tombstones, dev)
     if params is None:
         params = init_rpq(cfg, x, generator=seeded_generator("cpu", seed))
     params = Q.RPQParams(*(t.to(dev) for t in params))
@@ -160,24 +222,26 @@ def fit(cfg: Q.RPQConfig, tcfg: TrainConfig, x: torch.Tensor, graph: Graph, *,
     history = []
     t0 = time.time()
     for step in range(start_step, tcfg.steps):
-        gens = [seeded_generator(dev, seed, step, purpose) for purpose in range(5)]
+        dr = (draws(step, live.size) if draws is not None
+              else _generator_draws(dev, seed, step, live.size, tcfg,
+                                    tombstones is not None))
         # ---- feature extraction (paper Fig. 2 outer loop) ----
         if tcfg.use_routing and (routing_pool is None
                                  or step % tcfg.refresh_every == 0):
             model = to_model(cfg, params)
-            qidx = torch.randperm(n, generator=gens[POOL], device=dev)[
-                :tcfg.routing_pool_queries]
+            qidx = live_ids[dr.pool().to(dev).long()]
             routing_pool = F.sample_routing(
                 graph, x, x[qidx], pqbase.encode(model, x),
-                lut_fn=lambda q: pqbase.build_lut(model, q), h=tcfg.beam_h)
-        anchors = torch.randint(0, n, (tcfg.triplet_batch,),
-                                generator=gens[ANCHORS], device=dev)
+                lut_fn=lambda q: pqbase.build_lut(model, q), h=tcfg.beam_h,
+                tombstones=ts)
+        anchors = live_ids[dr.anchors.to(dev).long()]
         trip = F.sample_triplets(graph, x, anchors, n_hops=tcfg.n_hops,
                                  k_pos=tcfg.k_pos, k_neg=tcfg.k_neg,
-                                 generator=gens[TRIPLETS])
+                                 draws=dr.triplets, tombstones=ts)
         if tcfg.use_routing:
+            idx = dr.subsample(routing_pool.valid.sum())
             route = F.subsample_routing(routing_pool, tcfg.routing_batch,
-                                        generator=gens[SUBSAMPLE])
+                                        idx=idx.to(dev))
         else:  # placeholder batch, masked out by use_routing=False
             route = F.RoutingBatch(
                 q=torch.zeros((1, x.shape[1]), device=dev),
@@ -185,8 +249,10 @@ def fit(cfg: Q.RPQConfig, tcfg: TrainConfig, x: torch.Tensor, graph: Graph, *,
                 label=torch.zeros((1,), dtype=torch.int64, device=dev),
                 valid=torch.zeros((1,), dtype=torch.bool, device=dev))
         # ---- joint step ----
+        noise = dr.noise if isinstance(dr.noise, tuple) else None
+        gen = None if noise is not None else dr.noise
         params, opt_state, report, gnorm = step_fn(
-            params, opt_state, x, trip, route, generator=gens[NOISE])
+            params, opt_state, x, trip, route, generator=gen, noise=noise)
         if step % tcfg.log_every == 0:
             rec = {k: float(v) for k, v in report._asdict().items()}
             rec.update(step=step, gnorm=float(gnorm), wall=time.time() - t0)

@@ -19,8 +19,10 @@ Leaves are tensors or numpy arrays; a tensor is saved through
 round-trip through the JSON structure. NamedTuple nodes restore as plain
 field dicts unless a ``like`` template supplies the concrete type (the
 port's ``RPQParams`` and ``OptState`` carry the reference's names and
-fields). Dtypes numpy cannot name (bfloat16, the float8s) are not on the
-port's path: saving or restoring one raises ``TypeError``.
+fields). A bfloat16 or float8 leaf, which numpy cannot hold, is written as
+its raw bytes under the dtype name ``ml_dtypes`` gives it (``bfloat16``,
+``float8_e4m3fn``, …), the bytes the reference writes, and restores as the
+torch dtype of that name.
 """
 
 from __future__ import annotations
@@ -71,33 +73,56 @@ def _is_array(obj) -> bool:
     return isinstance(obj, (torch.Tensor, np.ndarray, np.generic))
 
 
-def _to_numpy(obj) -> np.ndarray:
+# torch dtypes numpy cannot hold, under the names ml_dtypes gives them in
+# the reference's manifests, each with the integer dtype of its bytes
+_RAW_DTYPES = {name: (getattr(torch, name), bits)
+               for name, bits in (("bfloat16", torch.int16),
+                                  ("float8_e4m3fn", torch.uint8),
+                                  ("float8_e4m3fnuz", torch.uint8),
+                                  ("float8_e5m2", torch.uint8),
+                                  ("float8_e5m2fnuz", torch.uint8),
+                                  ("float8_e8m0fnu", torch.uint8))
+               if hasattr(torch, name)}
+_RAW_NAMES = {dtype: name for name, (dtype, _) in _RAW_DTYPES.items()}
+
+
+def _to_numpy(obj) -> tuple[np.ndarray, str]:
+    """A leaf as (numpy array of its bytes' layout, manifest dtype name)."""
     if isinstance(obj, torch.Tensor):
+        t = obj.detach().cpu()
+        name = _RAW_NAMES.get(t.dtype)
+        if name is not None:
+            return t.contiguous().view(_RAW_DTYPES[name][1]).numpy(), name
         try:
-            return obj.detach().cpu().numpy()
+            a = t.numpy()
         except TypeError as e:
-            raise TypeError(
-                f"checkpoint: numpy cannot hold a {obj.dtype} leaf; cast it "
-                f"to a numpy dtype before saving") from e
-    return np.asarray(obj)
+            raise TypeError(f"checkpoint: cannot save a {t.dtype} leaf") from e
+        return a, str(a.dtype)
+    a = np.asarray(obj)
+    return a, str(a.dtype)
 
 
-def _resolve_dtype(name: str) -> np.dtype:
+def _from_raw(raw: bytes, name: str, shape) -> torch.Tensor:
+    """A leaf's bytes as the tensor its manifest names (CPU)."""
+    if name in _RAW_DTYPES:
+        dtype, bits = _RAW_DTYPES[name]
+        a = np.frombuffer(raw, torch.empty(0, dtype=bits).numpy().dtype)
+        return torch.from_numpy(a.reshape(shape).copy()).view(dtype)
     try:
-        return np.dtype(name)
+        a = np.frombuffer(raw, np.dtype(name))
     except TypeError as e:
-        raise TypeError(
-            f"checkpoint: leaf dtype {name!r} has no numpy name; the port "
-            f"restores numpy dtypes only") from e
+        raise TypeError(f"checkpoint: leaf dtype {name!r} has no numpy or "
+                        f"torch name") from e
+    return torch.from_numpy(a.reshape(shape).copy())
 
 
 def _encode(obj, arrays: list) -> Any:
     if _is_array(obj):
-        a = _to_numpy(obj)
+        a, name = _to_numpy(obj)
         raw = a.tobytes()
         arrays.append(np.frombuffer(raw, np.uint8))
         return {"kind": "array", "i": len(arrays) - 1,
-                "dtype": str(a.dtype), "shape": list(a.shape),
+                "dtype": name, "shape": list(a.shape),
                 "crc32": zlib.crc32(raw)}
     if isinstance(obj, tuple) and hasattr(obj, "_fields"):  # NamedTuple
         return {"kind": "namedtuple", "name": type(obj).__name__,
@@ -130,8 +155,7 @@ def _decode(node, arrays, device, path: str = "", drop=()) -> Any:
                     f"(dtype={node['dtype']}, shape={node['shape']}): "
                     f"crc32 {got:#010x} != manifest {want:#010x} — "
                     "snapshot bytes are corrupt")
-        a = np.frombuffer(raw, _resolve_dtype(node["dtype"]))
-        return torch.from_numpy(a.reshape(node["shape"]).copy()).to(device)
+        return _from_raw(raw, node["dtype"], node["shape"]).to(device)
     if kind == "namedtuple":
         return {f: _decode(v, arrays, device, f"{path}/{f}", drop)
                 for f, v in node["fields"].items()}

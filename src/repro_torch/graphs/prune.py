@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import full_f32_matmul
+
 INF = float("inf")
 
 # Elements of the (rows, C, C, D) squared-difference intermediate that
@@ -63,13 +65,16 @@ def robust_prune(cand_ids: torch.Tensor, cand_dv: torch.Tensor,
 
 def prune_from_vectors(x: torch.Tensor, node_ids: torch.Tensor,
                        cand_ids: torch.Tensor, alpha: float, r: int,
-                       sentinel: int) -> torch.Tensor:
+                       sentinel: int, *, gram: bool = False) -> torch.Tensor:
     """Convenience: gathers vectors and computes both distance tables.
 
     x must be sentinel-padded: x[(N+1), D] with x[N] finite (distances to the
     pad row are masked via the id check inside robust_prune). The pairwise
     table uses the squared-difference formula of the JAX function, over row
-    chunks of PAIR_CHUNK_ELEMS elements.
+    chunks of PAIR_CHUNK_ELEMS elements; ``gram=True`` computes it as
+    ‖a‖² + ‖b‖² − 2a·b with one batched full-f32 product instead (the same
+    distances up to rounding, at a fraction of the memory traffic: the
+    streaming index's consolidation prunes up to every row of a segment).
     """
     cand_ids = cand_ids.long()
     node_ids = node_ids.long()
@@ -78,6 +83,12 @@ def prune_from_vectors(x: torch.Tensor, node_ids: torch.Tensor,
     dv = ((xc - xv[:, None, :]) ** 2).sum(dim=-1)
     dv = torch.where(cand_ids == sentinel, INF, dv)
     b, c, d = xc.shape
+    if gram:
+        full_f32_matmul()
+        sq = (xc * xc).sum(dim=-1)
+        pair = (sq[:, :, None] + sq[:, None, :]
+                - 2.0 * torch.bmm(xc, xc.transpose(1, 2))).clamp_(min=0.0)
+        return robust_prune(cand_ids, dv, pair, alpha, r, sentinel)
     pair = torch.empty((b, c, c), dtype=torch.float32, device=x.device)
     step = max(1, PAIR_CHUNK_ELEMS // (c * c * d))
     for s in range(0, b, step):

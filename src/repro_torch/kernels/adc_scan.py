@@ -2,7 +2,8 @@
 
 :func:`adc_scan_batch` replaces ``repro/kernels/adc_scan.py::adc_scan_batch``:
 bulk ADC of every code row against a batch of query LUTs, in f32 (the TPU
-kernel's bf16 one-hot GEMM is not carried over). It is bound by the (Q, N)
+kernel's bf16 one-hot GEMM is not carried over), for uint8 codes and (K >
+256) int32 codes; a LUT passing shared memory goes in subspace chunks. It is bound by the (Q, N)
 output writes, 4 GB at 1000 × 1M; the f32 shared-memory lookups set a floor
 near twice that. Its plan (query tile, grid, each block's share of the work)
 is computed here as the kernel computes it, so the CPU tests can check it.
@@ -23,10 +24,13 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.hop_adc import CODE_DTYPES, MAX_LUT_BYTES, subspace_chunks
 
 # kernel launches since the last reset (chip_smoke.py reads them):
-launches = 0          # adc_scan_batch
-query_launches = 0    # adc_scan, one query
+launches = 0              # adc_scan_batch, uint8 codes
+launches_i32 = 0          # adc_scan_batch, int32 codes (K > 256)
+query_launches = 0        # adc_scan, one query, uint8 codes
+query_launches_i32 = 0    # adc_scan, int32 codes
 
 # The batch kernel's plan, as csrc/adc_scan.cu computes it. A block holds
 # the LUTs of TQ queries in shared memory, interleaved by query
@@ -38,7 +42,8 @@ query_launches = 0    # adc_scan, one query
 BATCH_THREADS = 768         # the kernel's kBatchThreads
 MAX_QUERY_TILE = 8
 MAX_TILE_BYTES = 227 * 1024  # shared memory one block may take on the H100
-MAX_LUT_BYTES = 200 * 1024   # one query's LUT, the most the wrapper takes
+# One query's LUT beyond MAX_LUT_BYTES (200 KB, hop_adc.py) goes in
+# subspace chunks (hop_adc.subspace_chunks), each launch continuing the sums.
 
 _fn = None
 _query_fn = None
@@ -48,9 +53,10 @@ def _entry():
     global _fn
     if _fn is None:
         fn = _build.load("adc_scan").adc_scan_batch_launch
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -91,40 +97,48 @@ def block_work(n: int, q: int, tq: int, blocks: int, b: int):
         f += r1 - r0
 
 
+def _check(fn: str, tensors) -> None:
+    for name, t, dtypes, ndim in tensors:
+        if t.device.type != "cuda" or t.device != tensors[0][1].device:
+            raise ValueError(f"{fn}: {name} must be on {tensors[0][1].device} (CUDA)")
+        if t.dtype not in dtypes or t.dim() != ndim or not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be a contiguous {ndim}-d "
+                             f"{' or '.join(map(str, dtypes))} tensor, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+
+
 def launch(codes: torch.Tensor, luts: torch.Tensor,
            out: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel on checked tensors; no validation here."""
-    global launches
+    """Launch the kernel on checked tensors, one launch per subspace chunk;
+    no validation here."""
+    global launches, launches_i32
     n, m = codes.shape
     q, _, k = luts.shape
     if n and q:
-        err = _entry()(codes.data_ptr(), n, m, luts.data_ptr(), q, k,
-                       query_tile(m, k), out.data_ptr(),
-                       _build.stream_handle(codes.device))
-        _build.check("adc_scan", err)
-        launches += 1
+        size = codes.element_size()
+        for j0, j1 in subspace_chunks(m, k, MAX_LUT_BYTES):
+            err = _entry()(codes.data_ptr() + j0 * size, size, n, m, j1 - j0,
+                           luts.data_ptr() + j0 * k * 4, m * k, q, k,
+                           query_tile(j1 - j0, k), int(j0 > 0), out.data_ptr(),
+                           _build.stream_handle(codes.device))
+            _build.check("adc_scan", err)
+            if codes.dtype == torch.int32:
+                launches_i32 += 1
+            else:
+                launches += 1
     return out
 
 
 def adc_scan_batch(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
-    """(N, M) uint8 codes × (Q, M, K) f32 LUTs → (Q, N) f32 on the card."""
-    for name, t, dtype, ndim in (("codes", codes, torch.uint8, 2),
-                                 ("luts", luts, torch.float32, 3)):
-        if t.device.type != "cuda" or t.device != codes.device:
-            raise ValueError(f"adc_scan_batch: {name} must be on {codes.device} (CUDA)")
-        if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
-            raise ValueError(f"adc_scan_batch: {name} must be a contiguous "
-                             f"{ndim}-d {dtype} tensor, got {t.dtype} "
-                             f"{tuple(t.shape)}")
+    """(N, M) uint8 or int32 codes × (Q, M, K) f32 LUTs → (Q, N) f32 on the
+    card. Codes must be below K."""
+    _check("adc_scan_batch", (("codes", codes, CODE_DTYPES, 2),
+                              ("luts", luts, (torch.float32,), 3)))
     n, m = codes.shape
     q, lm, k = luts.shape
     if lm != m:
         raise ValueError(f"adc_scan_batch: luts {tuple(luts.shape)} do not "
                          f"match codes {tuple(codes.shape)}")
-    if k > 256:
-        raise ValueError("adc_scan_batch: uint8 codes address at most K=256 codewords")
-    if m * k * 4 > MAX_LUT_BYTES:
-        raise ValueError("adc_scan_batch: one query's LUT must fit in shared memory")
     out = torch.empty((q, n), dtype=torch.float32, device=codes.device)
     return launch(codes, luts, out)
 
@@ -133,9 +147,9 @@ def _query_entry():
     global _query_fn
     if _query_fn is None:
         fn = _build.load("adc_scan").adc_scan_launch
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _query_fn = fn
     return _query_fn
@@ -143,33 +157,33 @@ def _query_entry():
 
 def launch_query(codes: torch.Tensor, lut: torch.Tensor,
                  out: torch.Tensor) -> torch.Tensor:
-    """Launch the one-query kernel on checked tensors; no validation here."""
-    global query_launches
+    """Launch the one-query kernel on checked tensors, one launch per
+    subspace chunk; no validation here."""
+    global query_launches, query_launches_i32
     n, m = codes.shape
+    k = lut.shape[1]
     if n:
-        err = _query_entry()(codes.data_ptr(), n, m, lut.data_ptr(), lut.shape[1],
-                             out.data_ptr(), _build.stream_handle(codes.device))
-        _build.check("adc_scan", err)
-        query_launches += 1
+        size = codes.element_size()
+        for j0, j1 in subspace_chunks(m, k, MAX_LUT_BYTES):
+            err = _query_entry()(codes.data_ptr() + j0 * size, size, n, m, j1 - j0,
+                                 lut.data_ptr() + j0 * k * 4, k, int(j0 > 0),
+                                 out.data_ptr(), _build.stream_handle(codes.device))
+            _build.check("adc_scan", err)
+            if codes.dtype == torch.int32:
+                query_launches_i32 += 1
+            else:
+                query_launches += 1
     return out
 
 
 def adc_scan(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
-    """(N, M) uint8 codes × (M, K) f32 LUT → (N,) f32 on the card."""
-    for name, t, dtype in (("codes", codes, torch.uint8),
-                           ("lut", lut, torch.float32)):
-        if t.device.type != "cuda" or t.device != codes.device:
-            raise ValueError(f"adc_scan: {name} must be on {codes.device} (CUDA)")
-        if t.dtype != dtype or t.dim() != 2 or not t.is_contiguous():
-            raise ValueError(f"adc_scan: {name} must be a contiguous 2-d "
-                             f"{dtype} tensor, got {t.dtype} {tuple(t.shape)}")
+    """(N, M) uint8 or int32 codes × (M, K) f32 LUT → (N,) f32 on the card.
+    Codes must be below K."""
+    _check("adc_scan", (("codes", codes, CODE_DTYPES, 2),
+                        ("lut", lut, (torch.float32,), 2)))
     n, m = codes.shape
     if lut.shape[0] != m:
         raise ValueError(f"adc_scan: lut {tuple(lut.shape)} does not match "
                          f"codes {tuple(codes.shape)}")
-    if lut.shape[1] > 256:
-        raise ValueError("adc_scan: uint8 codes address at most K=256 codewords")
-    if m * lut.shape[1] * 4 > 200 * 1024:
-        raise ValueError("adc_scan: the LUT must fit in shared memory")
     out = torch.empty((n,), dtype=torch.float32, device=codes.device)
     return launch_query(codes, lut, out)

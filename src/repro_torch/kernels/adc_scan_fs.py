@@ -19,7 +19,8 @@ launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
 
 TILE_Q = 8                      # queries per block (the kernel's kTileQ)
 MAX_QUERIES_PER_LAUNCH = 65535 * TILE_Q   # grid.y limit
-# The block's paired table is ceil(M/2) × 256 × 16 bytes of shared memory.
+# The block's paired table is ceil(M/2) × 256 × 16 bytes of shared memory;
+# a row of more packed bytes than fit (M > 100) goes in byte chunks.
 MAX_TABLE_BYTES = 200 * 1024
 
 _fn = None
@@ -29,25 +30,37 @@ def _entry():
     global _fn
     if _fn is None:
         fn = _build.load("adc_scan_fs").adc_scan_fs_launch
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
+def byte_chunks(mb: int, max_bytes: int = MAX_TABLE_BYTES) -> list[tuple[int, int]]:
+    """[b0, b1) packed-byte ranges covering a row of ``mb`` bytes, each with
+    a paired table of at most ``max_bytes``: one range when it all fits."""
+    per = max_bytes // (256 * 16)
+    return [(b0, min(mb, b0 + per)) for b0 in range(0, mb, per)]
+
+
 def launch(packed: torch.Tensor, luts_u8: torch.Tensor,
            out: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel on checked tensors; no validation here."""
+    """Launch the kernel on checked tensors, one launch per byte chunk, each
+    after the first adding its exact sums to the output; no validation
+    here."""
     global launches
     n, mb = packed.shape
     q, m, _ = luts_u8.shape
     if n and q:
-        err = _entry()(packed.data_ptr(), n, mb, luts_u8.data_ptr(), q, m,
-                       out.data_ptr(), _build.stream_handle(packed.device))
-        _build.check("adc_scan_fs", err)
-        launches += 1
+        for b0, b1 in byte_chunks(mb):
+            err = _entry()(packed.data_ptr() + b0, n, mb, b1 - b0,
+                           luts_u8.data_ptr() + 2 * b0 * 16, m * 16, q,
+                           min(m, 2 * b1) - 2 * b0, int(b0 > 0), out.data_ptr(),
+                           _build.stream_handle(packed.device))
+            _build.check("adc_scan_fs", err)
+            launches += 1
     return out
 
 
@@ -66,9 +79,6 @@ def adc_scan_fs(packed: torch.Tensor, luts_u8: torch.Tensor) -> torch.Tensor:
     if k != 16 or (m + 1) // 2 != mb:
         raise ValueError(f"adc_scan_fs: luts_u8 {tuple(luts_u8.shape)} do not "
                          f"match packed {tuple(packed.shape)}")
-    if mb * 256 * 16 > MAX_TABLE_BYTES:
-        raise ValueError(f"adc_scan_fs: M={m} needs a paired table beyond "
-                         f"{MAX_TABLE_BYTES} bytes of shared memory")
     out = torch.empty((q, n), dtype=torch.int32, device=packed.device)
     for q0 in range(0, q, MAX_QUERIES_PER_LAUNCH):
         q1 = min(q, q0 + MAX_QUERIES_PER_LAUNCH)

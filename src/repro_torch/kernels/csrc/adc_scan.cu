@@ -46,6 +46,14 @@
 // rows are 16-byte aligned (byte loads otherwise) and sums the M lookups in
 // j order, as the plain version does; writes along N coalesce.
 
+// Both kernels take uint8 codes (K <= 256) or int32 codes (any K, the
+// reference's canonical dtype for K > 256): one template over the code type,
+// with the 16-byte row loads for uint8 only. A launch covers the subspaces
+// [j0, j0 + mc) of rows of ldc codes: the wrapper (adc_scan.py) splits M into
+// chunks whose f32 LUT slice fits in shared memory and launches once per
+// chunk, each launch after the first starting its sums from the partial
+// sums in `out`, so every sum stays one f32 chain in j order.
+
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -66,12 +74,15 @@ __device__ __forceinline__ float lane_of(float4 v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-// TQ queries per tile (1, 2, 4 or 8); kVec16: M % 16 == 0, 16-byte codes.
-template <int TQ, bool kVec16>
+// TQ queries per tile (1, 2, 4 or 8); kVec16: uint8 codes, mc and ldc
+// multiples of 16, 16-byte aligned rows; kAccumulate: a chunk after the
+// first, starting from the sums in `out` (a template parameter, so the
+// one-chunk launch of the main path carries no trace of it).
+template <int TQ, bool kVec16, bool kAccumulate, typename CodeT>
 __global__ void __launch_bounds__(kBatchThreads)
-adc_scan_batch_kernel(const uint8_t* __restrict__ codes, int64_t n, int m,
-                      const float* __restrict__ luts, int q, int k,
-                      float* __restrict__ out) {
+adc_scan_batch_kernel(const CodeT* __restrict__ codes, int64_t n, int ldc,
+                      int m, const float* __restrict__ luts, int64_t ldl,
+                      int q, int k, float* __restrict__ out) {
   constexpr int kVec = TQ < 4 ? TQ : 4;      // queries per shared load
   constexpr int kLanesPerRow = TQ / kVec;    // 2 at TQ = 8, else 1
   using Vec = typename FloatVec<kVec>::T;
@@ -98,7 +109,7 @@ adc_scan_batch_kernel(const uint8_t* __restrict__ codes, int64_t n, int m,
         float v[TQ];
 #pragma unroll
         for (int t = 0; t < TQ; ++t)
-          v[t] = t < nq ? luts[static_cast<int64_t>(q0 + t) * mk + e] : 0.f;
+          v[t] = t < nq ? luts[static_cast<int64_t>(q0 + t) * ldl + e] : 0.f;
 #pragma unroll
         for (int h = 0; h < kLanesPerRow; ++h) {
           Vec w;
@@ -115,16 +126,19 @@ adc_scan_batch_kernel(const uint8_t* __restrict__ codes, int64_t n, int m,
     // the lane's next row's first 16 codes are loaded while this one is scored
     uint4 nxt = make_uint4(0, 0, 0, 0);
     if (kVec16 && r0 + slot < r1)
-      nxt = __ldg(reinterpret_cast<const uint4*>(codes + (r0 + slot) * m));
+      nxt = __ldg(reinterpret_cast<const uint4*>(codes + (r0 + slot) * ldc));
     for (int64_t row = r0 + slot; row < r1; row += rows_per_pass) {
-      const uint8_t* c = codes + row * m;
+      const CodeT* c = codes + row * ldc;
       const uint4 cur = nxt;
       if (kVec16 && row + rows_per_pass < r1)
-        nxt = __ldg(reinterpret_cast<const uint4*>(codes + (row + rows_per_pass) * m));
+        nxt = __ldg(reinterpret_cast<const uint4*>(codes + (row + rows_per_pass) * ldc));
       float acc[kVec];
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) acc[i] = 0.f;
-      if (kVec16) {
+      for (int i = 0; i < kVec; ++i) {
+        const int t = half * kVec + i;
+        acc[i] = kAccumulate && t < nq ? out[static_cast<int64_t>(q0 + t) * n + row] : 0.f;
+      }
+      if constexpr (kVec16) {
         for (int j0 = 0; j0 < m; j0 += 16) {
           const uint4 cv = j0 ? __ldg(reinterpret_cast<const uint4*>(c + j0)) : cur;
           const uint32_t w[4] = {cv.x, cv.y, cv.z, cv.w};
@@ -138,7 +152,8 @@ adc_scan_batch_kernel(const uint8_t* __restrict__ codes, int64_t n, int m,
         }
       } else {
         for (int j = 0; j < m; ++j) {
-          const Vec e = *reinterpret_cast<const Vec*>(tb + (j * k + __ldg(c + j)) * TQ);
+          const Vec e = *reinterpret_cast<const Vec*>(
+              tb + (j * k + static_cast<int>(__ldg(c + j))) * TQ);
 #pragma unroll
           for (int i = 0; i < kVec; ++i) acc[i] += lane_of(e, i);
         }
@@ -153,9 +168,11 @@ adc_scan_batch_kernel(const uint8_t* __restrict__ codes, int64_t n, int m,
   }
 }
 
-__global__ void adc_scan_kernel(const uint8_t* __restrict__ codes, int64_t n,
-                                int m, const float* __restrict__ lut, int k,
-                                bool vec16, float* __restrict__ out) {
+template <typename CodeT>
+__global__ void adc_scan_kernel(const CodeT* __restrict__ codes, int64_t n,
+                                int ldc, int m, const float* __restrict__ lut,
+                                int k, bool vec16, bool accumulate,
+                                float* __restrict__ out) {
   extern __shared__ float lut_one[];  // (m, k)
   const int mk = m * k;
   for (int i = threadIdx.x; i < mk; i += blockDim.x) lut_one[i] = lut[i];
@@ -164,9 +181,9 @@ __global__ void adc_scan_kernel(const uint8_t* __restrict__ codes, int64_t n,
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        row < n; row += stride) {
-    const uint8_t* c = codes + row * m;
-    float acc = 0.f;
-    if (vec16) {
+    const CodeT* c = codes + row * ldc;
+    float acc = accumulate ? out[row] : 0.f;
+    if (sizeof(CodeT) == 1 && vec16) {
       for (int j0 = 0; j0 < m; j0 += 16) {
         const uint4 v = *reinterpret_cast<const uint4*>(c + j0);
         const uint32_t w[4] = {v.x, v.y, v.z, v.w};
@@ -177,18 +194,24 @@ __global__ void adc_scan_kernel(const uint8_t* __restrict__ codes, int64_t n,
         }
       }
     } else {
-      for (int j = 0; j < m; ++j) acc += lut_one[j * k + c[j]];
+      for (int j = 0; j < m; ++j) acc += lut_one[j * k + static_cast<int>(c[j])];
     }
     out[row] = acc;
   }
 }
 
-template <int TQ>
-cudaError_t launch_batch(const uint8_t* codes, int64_t n, int m, const float* luts,
-                         int q, int k, float* out, cudaStream_t stream) {
-  const bool vec16 = (m % 16 == 0) && (reinterpret_cast<uintptr_t>(codes) % 16 == 0);
-  const auto kernel = vec16 ? adc_scan_batch_kernel<TQ, true>
-                            : adc_scan_batch_kernel<TQ, false>;
+template <int TQ, typename CodeT>
+cudaError_t launch_batch(const CodeT* codes, int64_t n, int ldc, int m,
+                         const float* luts, int64_t ldl, int q, int k,
+                         bool accumulate, float* out, cudaStream_t stream) {
+  const bool vec16 = sizeof(CodeT) == 1 && m % 16 == 0 && ldc % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(codes) % 16 == 0;
+  constexpr bool kU8 = sizeof(CodeT) == 1;
+  const auto kernel =
+      accumulate ? (vec16 ? adc_scan_batch_kernel<TQ, kU8, true, CodeT>
+                          : adc_scan_batch_kernel<TQ, false, true, CodeT>)
+                 : (vec16 ? adc_scan_batch_kernel<TQ, kU8, false, CodeT>
+                          : adc_scan_batch_kernel<TQ, false, false, CodeT>);
   const size_t smem = static_cast<size_t>(TQ) * m * k * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -208,7 +231,52 @@ cudaError_t launch_batch(const uint8_t* codes, int64_t n, int m, const float* lu
   need = need > tiles ? need : tiles;
   const int64_t cap = static_cast<int64_t>(sms) * per_sm;
   const unsigned blocks = static_cast<unsigned>(need < cap ? need : cap);
-  kernel<<<blocks, kBatchThreads, smem, stream>>>(codes, n, m, luts, q, k, out);
+  kernel<<<blocks, kBatchThreads, smem, stream>>>(codes, n, ldc, m, luts, ldl, q, k,
+                                                  out);
+  return cudaGetLastError();
+}
+
+template <typename CodeT>
+cudaError_t launch_batch_tq(const void* codes, int64_t n, int ldc, int m,
+                            const void* luts, int64_t ldl, int q, int k, int tq,
+                            int accumulate, void* out, cudaStream_t s) {
+  const auto* c = static_cast<const CodeT*>(codes);
+  const auto* l = static_cast<const float*>(luts);
+  auto* o = static_cast<float*>(out);
+  const bool acc = accumulate != 0;
+  switch (tq) {
+    case 1: return launch_batch<1>(c, n, ldc, m, l, ldl, q, k, acc, o, s);
+    case 2: return launch_batch<2>(c, n, ldc, m, l, ldl, q, k, acc, o, s);
+    case 4: return launch_batch<4>(c, n, ldc, m, l, ldl, q, k, acc, o, s);
+    case 8: return launch_batch<8>(c, n, ldc, m, l, ldl, q, k, acc, o, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename CodeT>
+cudaError_t launch_query(const void* codes, int64_t n, int ldc, int m,
+                         const void* lut, int k, int accumulate, void* out,
+                         cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(m) * k * sizeof(float);
+  cudaError_t err;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(adc_scan_kernel<CodeT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int64_t need = (n + kScanThreads - 1) / kScanThreads;
+  const int64_t cap = static_cast<int64_t>(sms) * kScanBlocksPerSm;
+  const unsigned blocks = static_cast<unsigned>(need < cap ? need : cap);
+  const bool vec16 = m % 16 == 0 && ldc % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(codes) % 16 == 0;
+  adc_scan_kernel<CodeT><<<blocks, kScanThreads, smem, stream>>>(
+      static_cast<const CodeT*>(codes), n, ldc, m, static_cast<const float*>(lut),
+      k, vec16, accumulate != 0, static_cast<float*>(out));
   return cudaGetLastError();
 }
 
@@ -216,45 +284,32 @@ cudaError_t launch_batch(const uint8_t* codes, int64_t n, int m, const float* lu
 
 extern "C" {
 
-int adc_scan_batch_launch(const void* codes, int64_t n, int m,
-                          const void* luts, int q, int k, int tq, void* out,
-                          void* stream) {
-  const auto* c = static_cast<const uint8_t*>(codes);
-  const auto* l = static_cast<const float*>(luts);
-  auto* o = static_cast<float*>(out);
+// codes: rows of ldc codes offset to subspace j0 (uint8 when code_bytes == 1,
+// int32 when 4), m = this chunk's subspaces; luts: offset to row j0 of
+// query 0's LUT, ldl floats apart.
+int adc_scan_batch_launch(const void* codes, int code_bytes, int64_t n, int ldc,
+                          int m, const void* luts, int64_t ldl, int q, int k,
+                          int tq, int accumulate, void* out, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  switch (tq) {
-    case 1: return static_cast<int>(launch_batch<1>(c, n, m, l, q, k, o, s));
-    case 2: return static_cast<int>(launch_batch<2>(c, n, m, l, q, k, o, s));
-    case 4: return static_cast<int>(launch_batch<4>(c, n, m, l, q, k, o, s));
-    case 8: return static_cast<int>(launch_batch<8>(c, n, m, l, q, k, o, s));
+  switch (code_bytes) {
+    case 1: return static_cast<int>(launch_batch_tq<uint8_t>(
+        codes, n, ldc, m, luts, ldl, q, k, tq, accumulate, out, s));
+    case 4: return static_cast<int>(launch_batch_tq<int32_t>(
+        codes, n, ldc, m, luts, ldl, q, k, tq, accumulate, out, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-int adc_scan_launch(const void* codes, int64_t n, int m, const void* lut, int k,
-                    void* out, void* stream) {
-  const size_t smem = static_cast<size_t>(m) * k * sizeof(float);
-  cudaError_t err;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(adc_scan_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+int adc_scan_launch(const void* codes, int code_bytes, int64_t n, int ldc, int m,
+                    const void* lut, int k, int accumulate, void* out, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (code_bytes) {
+    case 1: return static_cast<int>(launch_query<uint8_t>(
+        codes, n, ldc, m, lut, k, accumulate, out, s));
+    case 4: return static_cast<int>(launch_query<int32_t>(
+        codes, n, ldc, m, lut, k, accumulate, out, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  int dev = 0, sms = 0;
-  err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t need = (n + kScanThreads - 1) / kScanThreads;
-  const int64_t cap = static_cast<int64_t>(sms) * kScanBlocksPerSm;
-  const unsigned blocks = static_cast<unsigned>(need < cap ? need : cap);
-  const bool vec16 = (m % 16 == 0) && (reinterpret_cast<uintptr_t>(codes) % 16 == 0);
-  adc_scan_kernel<<<blocks, kScanThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(codes), n, m, static_cast<const float*>(lut), k,
-      vec16, static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
 }
 
 const char* adc_scan_error_string(int err) {

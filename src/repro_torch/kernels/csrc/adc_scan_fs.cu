@@ -26,6 +26,12 @@
 // never carry into each other), and the 8 int32 outputs are written along
 // N, coalesced across the warp. Odd M: the last byte's high nibble is 0 and
 // its table half is zero, as the plain version's padded LUT row.
+//
+// A launch covers the packed bytes [b0, b0 + mbc) of rows of ldc bytes (the
+// sub-codes [2 b0, 2 b0 + m)): the wrapper (adc_scan_fs.py) splits a row
+// whose paired table would pass its shared-memory budget (M > 100) into
+// chunks and launches once per chunk, each launch after the first adding
+// its exact int32 sums to those in `out`.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -38,9 +44,10 @@ constexpr int kTileQ = 8;
 
 template <bool kVec4>
 __global__ void adc_scan_fs_kernel(const uint8_t* __restrict__ codes,
-                                   int64_t n, int mb,
-                                   const uint8_t* __restrict__ luts, int q,
-                                   int m, int32_t* __restrict__ out) {
+                                   int64_t n, int ldc, int mb,
+                                   const uint8_t* __restrict__ luts,
+                                   int64_t ldl, int q, int m, bool accumulate,
+                                   int32_t* __restrict__ out) {
   extern __shared__ uint4 tab[];  // (mb, 256): 8 u16 per entry
   uint32_t* tab_w = reinterpret_cast<uint32_t*>(tab);
   const int q0 = blockIdx.y * kTileQ;
@@ -54,7 +61,7 @@ __global__ void adc_scan_fs_kernel(const uint8_t* __restrict__ codes,
     for (int h = 0; h < 2; ++h) {
       const int t = 2 * w + h;
       if (t < nq) {
-        const uint8_t* l = luts + static_cast<int64_t>(q0 + t) * m * 16;
+        const uint8_t* l = luts + static_cast<int64_t>(q0 + t) * ldl;
         uint32_t v = l[(2 * b) * 16 + (byte & 15)];
         if (2 * b + 1 < m) v += l[(2 * b + 1) * 16 + (byte >> 4)];
         word |= v << (16 * h);
@@ -68,7 +75,7 @@ __global__ void adc_scan_fs_kernel(const uint8_t* __restrict__ codes,
   for (int it = 0; it < kRowIters; ++it) {
     const int64_t row = tile0 + static_cast<int64_t>(it) * blockDim.x + threadIdx.x;
     if (row >= n) break;
-    const uint8_t* c = codes + row * mb;
+    const uint8_t* c = codes + row * ldc;
     uint32_t a0 = 0, a1 = 0, a2 = 0, a3 = 0;
     for (int b0 = 0; b0 < mb; b0 += 4) {
       uint32_t word;
@@ -92,7 +99,8 @@ __global__ void adc_scan_fs_kernel(const uint8_t* __restrict__ codes,
     for (int t = 0; t < kTileQ; ++t) {
       if (t < nq) {
         const uint32_t s = (t & 1) ? (acc[t >> 1] >> 16) : (acc[t >> 1] & 0xFFFFu);
-        out[static_cast<int64_t>(q0 + t) * n + row] = static_cast<int32_t>(s);
+        int32_t* o = out + static_cast<int64_t>(q0 + t) * n + row;
+        *o = accumulate ? *o + static_cast<int32_t>(s) : static_cast<int32_t>(s);
       }
     }
   }
@@ -102,12 +110,16 @@ __global__ void adc_scan_fs_kernel(const uint8_t* __restrict__ codes,
 
 extern "C" {
 
-int adc_scan_fs_launch(const void* codes, int64_t n, int mb, const void* luts,
-                       int q, int m, void* out, void* stream) {
+// codes: rows of ldc bytes offset to packed byte b0; luts: offset to
+// sub-code 2 b0 of query 0's LUT, ldl bytes apart; m: this chunk's sub-codes.
+int adc_scan_fs_launch(const void* codes, int64_t n, int ldc, int mb,
+                       const void* luts, int64_t ldl, int q, int m,
+                       int accumulate, void* out, void* stream) {
   if (m < 1 || m > 256 || mb != (m + 1) / 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(mb) * 256 * sizeof(uint4);
-  const bool vec4 = (mb % 4 == 0) && (reinterpret_cast<uintptr_t>(codes) % 4 == 0);
+  const bool vec4 = mb % 4 == 0 && ldc % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(codes) % 4 == 0;
   const auto kernel = vec4 ? adc_scan_fs_kernel<true> : adc_scan_fs_kernel<false>;
   if (smem > 48 * 1024) {  // beyond the default limit: opt in (M > 24)
     cudaError_t err = cudaFuncSetAttribute(
@@ -118,8 +130,9 @@ int adc_scan_fs_launch(const void* codes, int64_t n, int mb, const void* luts,
   const dim3 grid(static_cast<unsigned>((n + rows_per_block - 1) / rows_per_block),
                   static_cast<unsigned>((q + kTileQ - 1) / kTileQ));
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(codes), n, mb, static_cast<const uint8_t*>(luts),
-      q, m, static_cast<int32_t*>(out));
+      static_cast<const uint8_t*>(codes), n, ldc, mb,
+      static_cast<const uint8_t*>(luts), ldl, q, m, accumulate != 0,
+      static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

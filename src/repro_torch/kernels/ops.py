@@ -8,8 +8,9 @@ the kernel to the plain version.
 
 Dtype boundary: callers hand in codes and ids in whatever integer dtype
 they store, and THIS module casts once to the canonical kernel dtypes —
-uint8 codes (K ≤ 256, or fs4 packed bytes), int32 ids, f32 LUTs and
-sub-vectors, uint8 fs4 LUTs. The kernel wrappers and the plain versions
+uint8 codes stay uint8 and any other integer codes become int32 (K > 256,
+the reference's canonical dtype; never narrowed to uint8), fs4 packed bytes
+and LUTs uint8, int32 ids, f32 LUTs and sub-vectors. The kernel wrappers and the plain versions
 assume the canonical dtypes. The fs4 kernels return exact int32 sums; the
 one affine dequant (:func:`_dequant`) stays here, outside both kernels, so
 the float op sequence is the plain version's on every device.
@@ -48,10 +49,18 @@ def pad_rows_to_multiple(x: torch.Tensor, mult: int) -> torch.Tensor:
 
 
 def _codes_u8(codes: torch.Tensor) -> torch.Tensor:
-    """Canonical plain codes, fs4 packed bytes and fs4 LUTs: uint8,
-    contiguous."""
+    """Canonical fs4 packed bytes and fs4 LUTs: uint8, contiguous."""
     if codes.dtype != torch.uint8:
         codes = codes.to(torch.uint8)
+    return codes.contiguous()
+
+
+def _codes(codes: torch.Tensor) -> torch.Tensor:
+    """Canonical plain codes, contiguous: uint8 stays uint8 (the kernels'
+    byte rows), every other integer dtype becomes int32 (the kernels'
+    int32 variants), so a code above 255 is never narrowed."""
+    if codes.dtype not in (torch.uint8, torch.int32):
+        codes = codes.to(torch.int32)
     return codes.contiguous()
 
 
@@ -65,11 +74,6 @@ def _f32(x: torch.Tensor) -> torch.Tensor:
     if x.dtype != torch.float32:
         x = x.float()
     return x.contiguous()
-
-
-def _check_k(k: int) -> None:
-    if k > 256:
-        raise ValueError(f"uint8 codes address at most K=256 codewords, got K={k}")
 
 
 def pq_pairwise_backward(x: torch.Tensor, codebook: torch.Tensor,
@@ -134,8 +138,7 @@ def hop_adc(codes: torch.Tensor, ids: torch.Tensor, luts: torch.Tensor, *,
 
     ``0 < m_prefix < M`` reduces only the FIRST m_prefix subspaces — the
     partial-LUT lower bound of hop pruning."""
-    codes, ids, luts = _codes_u8(codes), _ids_i32(ids), _f32(luts)
-    _check_k(luts.shape[2])
+    codes, ids, luts = _codes(codes), _ids_i32(ids), _f32(luts)
     m = codes.shape[1]
     mp = m_prefix if 0 < m_prefix < m else 0
     if codes.is_cuda:
@@ -149,8 +152,7 @@ def hop_gather(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
     """Per-hop beam ADC on PRE-GATHERED codes: (Q, R, M) codes × (Q, M, K)
     LUTs → (Q, R) f32. Prefer :func:`hop_adc` where the ids are still at
     hand — it fuses the gather too."""
-    codes, luts = _codes_u8(codes), _f32(luts)
-    _check_k(luts.shape[2])
+    codes, luts = _codes(codes), _f32(luts)
     if codes.is_cuda:
         return _hopg.hop_gather(codes, luts)
     return _ref.hop_gather_ref(codes, luts)
@@ -158,8 +160,7 @@ def hop_gather(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
 
 def adc_scan(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
     """One-query ADC scan: (N, M) codes × (M, K) LUT → (N,) f32."""
-    codes, lut = _codes_u8(codes), _f32(lut)
-    _check_k(lut.shape[1])
+    codes, lut = _codes(codes), _f32(lut)
     if codes.is_cuda:
         return _adc.adc_scan(codes, lut)
     return _ref.adc_scan_ref(codes, lut)
@@ -167,8 +168,7 @@ def adc_scan(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
 
 def adc_scan_batch(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
     """Batched ADC scan: (N, M) codes × (Q, M, K) LUTs → (Q, N) f32."""
-    codes, luts = _codes_u8(codes), _f32(luts)
-    _check_k(luts.shape[2])
+    codes, luts = _codes(codes), _f32(luts)
     if codes.is_cuda:
         return _adc.adc_scan_batch(codes, luts)
     return _ref.adc_scan_batch_ref(codes, luts)
@@ -220,11 +220,17 @@ def reset_launch_counts() -> None:
     for mod in (_pqp, _hop, _adc, _hopfs, _adcfs, _hopg):
         mod.launches = 0
     _adc.query_launches = 0
+    _hop.launches_i32 = _adc.launches_i32 = _hopg.launches_i32 = 0
+    _adc.query_launches_i32 = 0
 
 
 def launch_counts() -> dict[str, int]:
-    """Kernel launches since the last :func:`reset_launch_counts`."""
+    """Kernel launches since the last :func:`reset_launch_counts`; the
+    int32-code variants (K > 256) count under ``<kernel>_i32``."""
     return {"pq_pairwise": _pqp.launches, "hop_adc": _hop.launches,
             "adc_scan_batch": _adc.launches, "hop_adc_fs": _hopfs.launches,
             "adc_scan_fs": _adcfs.launches, "adc_scan": _adc.query_launches,
-            "hop_gather": _hopg.launches}
+            "hop_gather": _hopg.launches, "hop_adc_i32": _hop.launches_i32,
+            "adc_scan_batch_i32": _adc.launches_i32,
+            "adc_scan_i32": _adc.query_launches_i32,
+            "hop_gather_i32": _hopg.launches_i32}

@@ -15,9 +15,16 @@ import torch
 
 def hop_gather_ref(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
     """Per-hop ADC on pre-gathered rows: (Q, R, M) codes × (Q, M, K) LUTs →
-    (Q, R) f32, ``out[q, r] = sum_j luts[q, j, codes[q, r, j]]``."""
-    idx = codes.long().transpose(1, 2)                 # (Q, M, R)
-    return luts.float().gather(2, idx).sum(dim=1)      # (Q, R)
+    (Q, R) f32, ``out[q, r] = sum_j luts[q, j, codes[q, r, j]]``,
+    accumulated one subspace at a time in j order, as ``adc_scan_ref`` and
+    ``adc_scan_batch_ref`` sum: a row scored here and the same codes scored
+    by a scan come out as the same float."""
+    luts = luts.float()
+    idx = codes.long()
+    out = torch.zeros(codes.shape[:2], dtype=torch.float32, device=luts.device)
+    for j in range(codes.shape[2]):
+        out += luts[:, j, :].gather(1, idx[:, :, j])
+    return out
 
 
 def hop_adc_ref(codes: torch.Tensor, ids: torch.Tensor,

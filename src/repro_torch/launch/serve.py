@@ -1,9 +1,10 @@
 """ANN serving driver: load a trained RPQ checkpoint and serve queries.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --ckpt-dir runs/rpq \
-        --dataset sift-small [--scenario hybrid|memory|sharded] \
+        --dataset sift-small [--scenario hybrid|memory|sharded|streaming] \
         [--codes u8|fs4] [--h 32] [--entries 8] [--prune-eps 0.1] \
         [--deadline-ms 20] [--degrade-level 2] [--chaos io=0.05] \
+        [--churn 0.1] [--churn-rounds 4] [--refresh-every 2] \
         [--port-stdin] [--device cpu]
 
 Port of ``repro/launch/serve.py``; ``--device`` (default ``cuda``; without
@@ -19,8 +20,16 @@ Scenarios (``search/engine.py``): ``memory`` (codes + PG resident, ADC
 routing only), ``hybrid`` (DiskANN-style: ADC routing + exact rerank from
 "SSD" vectors; the default) and ``sharded`` (the graph-free exhaustive
 scan with a local rerank, on ONE shard; ``--chaos dead=0`` drops it from
-the merge). ``sharded-graph``, ``streaming`` and ``disk`` are not ported
-yet and exit with the queue item that holds them.
+the merge) and ``streaming`` (live serving under churn through
+``index.StreamingEngine``: the dataset's tail is held out as an insert
+stream, ``--churn-rounds`` rounds of insert / delete / query run against the
+mutable index, scored against the LIVE corpus, and a consolidation folds the
+delta into the next generation, snapshotted next to the checkpoint;
+``--refresh-every N`` retrains the quantizer on the live graph every N
+rounds and at the final consolidation; ``--chaos crash=consolidate`` /
+``corrupt`` drill a crash mid-consolidation and the restore).
+``sharded-graph`` and ``disk`` are not ported yet and exit with the queue
+item that holds them.
 
 ``--entries S`` / ``--prune-eps ε`` switch on adaptive routing (DESIGN.md
 §11); ``--deadline-ms`` becomes a ``max_rounds`` budget through
@@ -43,7 +52,7 @@ from repro_torch.core.trainer import to_model
 from repro_torch.data import load_dataset
 from repro_torch.device import resolve_device
 from repro_torch.dist import checkpoint as ckpt
-from repro_torch.dist.fault import ChaosPlan
+from repro_torch.dist.fault import ChaosPlan, InjectedFailure, corrupt_snapshot
 from repro_torch.dist.retry import RetryPolicy
 from repro_torch.graphs import knn_ids
 from repro_torch.launch.train import build_or_load_graph
@@ -51,12 +60,11 @@ from repro_torch.pq import base as pqbase
 from repro_torch.pq import pack
 from repro_torch.search.degrade import DegradationPolicy
 from repro_torch.search.engine import HybridEngine, InMemoryEngine, ShardedEngine
-from repro_torch.search.metrics import measure_qps, recall_at_k
+from repro_torch.search.metrics import live_ground_truth, measure_qps, recall_at_k
 
 SCENARIOS = ("hybrid", "memory", "sharded", "sharded-graph", "streaming", "disk")
 # scenarios of the reference that wait for later slices (ROADMAP.md queue A)
 NOT_PORTED = {"sharded-graph": "queue A item 14 (sharded engines)",
-              "streaming": "queue A item 12 (streaming index)",
               "disk": "queue A item 13 (disk tier)"}
 
 
@@ -120,6 +128,138 @@ def build_engine(args, ds, model):
     return InMemoryEngine(graph, codes, lut_fn, device=dev)
 
 
+def run_streaming(args, model, ds, plan: Optional[ChaosPlan] = None) -> dict:
+    """The churn loop: hold out the dataset tail as an insert stream, then
+    interleave insert / delete / query batches through a StreamingEngine
+    and consolidate at the end. Returns the engine and each evaluation's
+    line values."""
+    from repro_torch.index import BaseSegment, StreamingEngine
+    from repro_torch.index.segment import encode_codes
+
+    dev = ds.base.device
+    n = int(ds.base.shape[0])
+    n0 = n - int(n * args.churn)
+    base_x, stream = ds.base[:n0], ds.base[n0:]
+    graph = build_or_load_graph(torch.Generator().manual_seed(0), base_x,
+                                f"{args.ckpt_dir}/graph_stream{n0}.npz",
+                                args.graph_r, args.graph_l)
+    seg = BaseSegment(graph=graph, codes=encode_codes(model, base_x, args.codes),
+                      vectors=base_x, layout=args.codes)
+    cap = max(len(stream), 1)
+    engine = StreamingEngine(seg, model, delta_capacity=cap, device=dev)
+    print(f"[serve] streaming: base {n0} rows (gen 0), insert stream "
+          f"{len(stream)}, delta capacity {cap}, layout {args.codes}")
+
+    rng = np.random.default_rng(0)
+    # gid → vector row for the live-corpus ground truth, written at insert
+    # time (consolidation renumbers gids)
+    all_x = torch.zeros((n0 + cap, base_x.shape[1]), device=dev)
+    all_x[:n0] = base_x
+    live = np.zeros(n0 + cap, bool)
+    live[:n0] = True
+    policy = DegradationPolicy()
+    budget = {"max_rounds": None}
+    evals = {}
+
+    def evaluate(tag: str) -> None:
+        if args.deadline_ms and budget["max_rounds"] is None:
+            budget["max_rounds"] = calibrate_max_rounds(
+                engine, ds.queries, args.deadline_ms / 1e3, k=args.k, h=args.h)
+            print(f"[serve] deadline {args.deadline_ms}ms → "
+                  f"max_rounds={budget['max_rounds']}")
+        skw = policy.apply(engine, args.degrade_level, h=args.h,
+                           expand=args.expand, entries=args.entries,
+                           prune_eps=args.prune_eps,
+                           max_rounds=budget["max_rounds"])
+        gt_g = live_ground_truth(all_x, np.flatnonzero(live), ds.queries, args.k)
+        qps, res = measure_qps(lambda q: engine.search(q, k=args.k, **skw),
+                               ds.queries)
+        rec = recall_at_k(res.ids, gt_g, args.k)
+        trunc = f" truncated={float(res.truncated.float().mean()):.2f}"
+        print(f"[serve] streaming/{tag}: recall@{args.k}={rec:.4f} "
+              f"qps={qps:.1f} live={engine.n_live} gen={engine.generation} "
+              f"resident={engine.memory_bytes()/1e6:.1f}MB{trunc}")
+        evals[tag] = {"recall": rec, "qps": qps, "live": engine.n_live,
+                      "generation": engine.generation}
+
+    snap_dir = f"{args.ckpt_dir}/streaming_index"
+
+    def consolidate_now(refresh, chaos=None) -> dict:
+        nonlocal live, all_x
+        stats = engine.consolidate(ckpt_dir=snap_dir, keep=3, refresh=refresh,
+                                   chaos=chaos)
+        # consolidation renumbers: translate the live-corpus bookkeeping
+        old_live = np.flatnonzero(live)
+        live = np.zeros(stats["n"] + cap, bool)
+        live[stats["old2new"][old_live]] = True
+        all_x = torch.cat([engine.base.vectors,
+                           torch.zeros((cap, base_x.shape[1]), device=dev)])
+        extra = ""
+        if stats["refreshed"]:
+            rep = stats["refresh"]
+            extra = (f", codebooks refreshed (live distortion "
+                     f"{rep['distortion_before']:.3f} → "
+                     f"{rep['distortion_after']:.3f})")
+        print(f"[serve] consolidated → generation {stats['generation']}: "
+              f"{stats['n']} rows ({stats['dropped']} dropped, "
+              f"{stats['folded']} folded in){extra}, snapshot at {snap_dir}")
+        return stats
+
+    rounds = max(args.churn_rounds, 1)
+    per = -(-max(len(stream), 1) // rounds)
+    for i in range(rounds):
+        batch = stream[i * per:(i + 1) * per]
+        if len(batch):
+            gids = engine.insert(batch)
+            all_x[torch.from_numpy(gids).to(dev)] = batch
+            live[gids] = True
+        live_base = np.flatnonzero(live[:engine.base.n])
+        dead = rng.choice(live_base, min(len(batch), len(live_base)),
+                          replace=False)
+        engine.delete(dead)
+        live[dead] = False
+        evaluate(f"round{i}")
+        # mid-stream refreshed consolidations close the learning loop while
+        # the stream keeps flowing; the final consolidation covers the tail
+        if (args.refresh_every and (i + 1) % args.refresh_every == 0
+                and i + 1 < rounds):
+            consolidate_now(refresh=True)
+            evaluate(f"refreshed{i}")
+    if plan is not None and plan.crash_phase is not None:
+        # chaos drill: crash mid-consolidation, then show a restart lands on
+        # an intact generation — with the newest snapshot corrupted on top
+        # when the plan says so. Establish durable intact generations first
+        # (two when corruption will eat the newest).
+        consolidate_now(refresh=False)
+        if plan.corrupt_latest_snapshot:
+            consolidate_now(refresh=False)
+        try:
+            consolidate_now(refresh=bool(args.refresh_every),
+                            chaos=plan.consolidate_hook())
+        except InjectedFailure as e:
+            print(f"[serve] chaos: injected crash during consolidation "
+                  f"({e}); restarting from {snap_dir}")
+        if plan.corrupt_latest_snapshot:
+            step = corrupt_snapshot(snap_dir, seed=plan.seed)
+            print(f"[serve] chaos: corrupted snapshot generation {step}")
+        engine = StreamingEngine.restore(
+            snap_dir, delta_capacity=cap, retry=RetryPolicy(), device=dev,
+            on_fallback=lambda g, e: print(
+                f"[serve] chaos: generation {g} failed verification "
+                f"({type(e).__name__}) — falling back"))
+        live = np.zeros(engine.base.n + cap, bool)
+        live[:engine.base.n] = True
+        all_x = torch.cat([engine.base.vectors,
+                           torch.zeros((cap, base_x.shape[1]), device=dev)])
+        print(f"[serve] chaos: restored generation {engine.generation} "
+              f"({engine.n_live} live rows)")
+        evaluate("restored")
+        return {"engine": engine, "evals": evals}
+    consolidate_now(refresh=bool(args.refresh_every))
+    evaluate("consolidated")
+    return {"engine": engine, "evals": evals}
+
+
 def serve_stdin(args, engine, dim: int, device) -> None:
     """The toy request loop: one query of ``dim`` floats per line; a line
     that does not parse prints ``!! expected …`` and the loop goes on."""
@@ -169,6 +309,12 @@ def run(args) -> dict:
             f"--codes fs4 needs 4-bit sub-codes (K <= 16); this checkpoint "
             f"was trained with K={k}. Re-train with --k 16 (double M to keep "
             f"the byte budget).")
+    if args.scenario == "streaming":  # live mutable index under churn
+        if args.port_stdin:
+            raise SystemExit(
+                "--port-stdin is not available with --scenario streaming: "
+                "the scenario runs a fixed churn loop, not a query port")
+        return run_streaming(args, model, ds, plan)
     engine = build_engine(args, ds, model)
     if args.port_stdin:
         serve_stdin(args, engine, ds.dim, dev)
@@ -224,6 +370,18 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--k", type=int, default=10)
     ap.add_argument("--graph-r", type=int, default=24)
     ap.add_argument("--graph-l", type=int, default=48)
+    ap.add_argument("--churn", type=float, default=0.1,
+                    help="streaming scenario: fraction of the dataset held "
+                    "out as the insert stream (an equal count of base rows "
+                    "is deleted over the churn rounds)")
+    ap.add_argument("--churn-rounds", type=int, default=4,
+                    help="streaming scenario: interleaved insert/delete/"
+                    "query rounds before consolidation")
+    ap.add_argument("--refresh-every", type=int, default=0,
+                    help="streaming scenario: a codebook-REFRESHED "
+                    "consolidation every N churn rounds (the quantizer "
+                    "retrains on the live graph; the final consolidation "
+                    "refreshes too); 0 = codebooks frozen across generations")
     ap.add_argument("--deadline-ms", type=float, default=0.0,
                     help="per-batch serving deadline (DESIGN.md §13): a "
                     "warm-up batch calibrates the per-round latency and the "
@@ -231,11 +389,13 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--degrade-level", type=int, default=0,
                     help="degradation ladder rung (DESIGN.md §13): 0 = full "
                     "config; L1 expand, L2 entries, L3 aggressive prune, L4 "
-                    "rerank (L5, the delta scan, has no engine here)")
+                    "rerank, L5 the streaming delta scan")
     ap.add_argument("--chaos", default="",
                     help="fault-injection plan (DESIGN.md §13), e.g. "
-                    "'io=0.05,dead=0,seed=7': transient checkpoint-read "
-                    "faults (retried), dead shards dropped from the merge")
+                    "'io=0.05,dead=0,corrupt,crash=consolidate,seed=7': "
+                    "transient checkpoint-read faults (retried), dead shards "
+                    "dropped from the merge, a corrupted newest snapshot and "
+                    "a crash mid-consolidation (streaming)")
     ap.add_argument("--port-stdin", action="store_true",
                     help="read whitespace-separated query vectors on stdin")
     ap.add_argument("--device", default="cuda",

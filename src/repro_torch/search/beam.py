@@ -48,8 +48,9 @@ value bit-identical to the classic beam:
   round in the lane's own loop condition; an exhausted lane freezes with
   its best-so-far beam and ``truncated=True``. ``None`` adds no check.
 
-A tombstone mask baked into ``make_adc_dist_fn`` (the reference's
-``tombstones=`` there) waits for the streaming slice.
+``make_adc_dist_fn(tombstones=)`` bakes a deleted-vertex mask into the
+distance function instead (a frozen snapshot's variant: dead ids score
++inf, with neither the dead-entry rescue nor the scrub).
 """
 
 from __future__ import annotations
@@ -431,7 +432,7 @@ def make_lb_scale_fn(*, packed: bool = False, m_prefix: int) -> Callable:
 
 
 def make_adc_dist_fn(codes: torch.Tensor, *, packed: bool = False,
-                     m_prefix: int = 0) -> Callable:
+                     tombstones=None, m_prefix: int = 0) -> Callable:
     """qdatas = LUTs (Q, M, K); codes must be (N+1, M) sentinel-padded
     uint8. Each call is one fused ``hop_adc`` over the batch's frontier —
     the kernel on the card, its plain version on the CPU.
@@ -444,7 +445,23 @@ def make_adc_dist_fn(codes: torch.Tensor, *, packed: bool = False,
     ``m_prefix`` subspaces: a lower bound on the full one (every LUT entry
     is ≥ 0; fs4 dequantizes with ``m_prefix · bias``, bias ≥ 0), the
     ``lb_dist_fn`` of hop pruning. ``m_prefix=0`` is the full distance.
+
+    ``tombstones`` (a (W,) bitset over ids [0, N), as ``beam_search``
+    takes it) bakes a deleted-vertex mask into the function: tombstoned ids
+    return +inf. A streaming caller passes ``beam_search(tombstones=)``
+    instead, which rescues a dead entry and scrubs the returned beam; a
+    search ENTERED at a vertex dead in the baked mask ends empty.
     """
+    if tombstones is not None:
+        ts = as_bitset(tombstones, codes.device)
+        inner = make_adc_dist_fn(codes, packed=packed, m_prefix=m_prefix)
+        n = codes.shape[0] - 1              # codes are sentinel-padded
+
+        def dead_fn(qdata, ids):
+            d = inner(qdata, ids)
+            return torch.where(_is_dead(ts, ids.long(), n), INF, d)
+        return dead_fn
+
     if packed:
         def dist_fn(qlut, ids):
             return kops.hop_adc_fs(codes, ids, qlut.lut, qlut.scale, qlut.bias,

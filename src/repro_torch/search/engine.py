@@ -30,9 +30,11 @@ round's full scoring behind a partial-LUT lower bound over ``m_prefix``
 subspaces, ``max_rounds`` / ``max_n_dist`` bound the work per call, and
 ``HybridEngine.search(rerank=)`` re-ranks a count of candidates, or none
 (the degradation ladder's L4). ``entries=1, prune_eps=0`` and no budget
-are bit-identical to the classic beam. Still to port: HNSW descent
-(``entry_fn``, with ``graphs/hnsw.py``), more than one shard, the graph-
-routed sharded engine, and the streaming engine's delta arm.
+are bit-identical to the classic beam. The streaming engine
+(``index/engine.py``) reuses ``_bulk_adc``, ``_prune_cfg`` and
+``topk_lower``. Still to port: HNSW descent (``entry_fn``, with
+``graphs/hnsw.py``), more than one shard and the graph-routed sharded
+engine.
 """
 
 from __future__ import annotations

@@ -118,7 +118,8 @@ def build_seed_index(codes, *, k: Optional[int] = None,
     pivots = np.arange(0, n, stride, dtype=np.int32)[:n_pivots]
     return SeedIndex(torch.from_numpy(table).to(dev),
                      torch.from_numpy(pivots).to(dev),
-                     torch.from_numpy(codes_np.astype(np.uint8)).to(dev),
+                     torch.from_numpy(codes_np.astype(
+                         np.uint8 if codes_np.dtype == np.uint8 else np.int32)).to(dev),
                      k, m_hash)
 
 

@@ -254,3 +254,69 @@ def test_pq_pairwise_gradient_on_the_card(dev):
     ref.pq_pairwise_ref(x2, c2).backward(up)
     torch.testing.assert_close(x1.grad, x2.grad, rtol=1e-5, atol=1e-3)
     torch.testing.assert_close(c1.grad, c2.grad, rtol=1e-5, atol=1e-2)
+
+
+# --------------------------------------------------------------------------
+# int32 codes (K > 256) and subspace chunking past shared memory
+# --------------------------------------------------------------------------
+
+def _wide_inputs(dev, n, m, k, q, seed, dtype=torch.int32):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    codes = torch.randint(0, k, (n, m), generator=g, device=dev,
+                          dtype=torch.int32).to(dtype)
+    luts = torch.rand((q, m, k), generator=g, device=dev) * 4.0
+    return codes, luts
+
+
+@pytest.mark.parametrize("n,m,k,q", [(600, 4, 512, 3), (4099, 16, 1024, 13),
+                                     (3001, 64, 1024, 5)])
+def test_int32_variants_match_plain(dev, n, m, k, q):
+    """The four int32 variants at K > 256 (M=64, K=1024 also chunks):
+    adc_scan_batch bit for bit, the others against the plain version."""
+    codes, luts = _wide_inputs(dev, n, m, k, q, seed=n + m)
+    ops.reset_launch_counts()
+    torch.testing.assert_close(ops.adc_scan_batch(codes, luts),
+                               ref.adc_scan_batch_ref(codes, luts), rtol=0, atol=0)
+    torch.testing.assert_close(ops.adc_scan(codes, luts[0]),
+                               ref.adc_scan_ref(codes, luts[0]), rtol=1e-5, atol=1e-4)
+    ids = torch.randint(0, n, (q, 64), device=dev, dtype=torch.int32)
+    for mp in (0, max(1, m // 2 + 1)):
+        want = (ref.hop_adc_ref(codes[:, :mp], ids, luts[:, :mp]) if mp
+                else ref.hop_adc_ref(codes, ids, luts))
+        torch.testing.assert_close(ops.hop_adc(codes, ids, luts, m_prefix=mp), want,
+                                   rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(ops.hop_gather(codes[ids.long()], luts),
+                               ref.hop_gather_ref(codes[ids.long()], luts),
+                               rtol=1e-5, atol=1e-4)
+    counts = ops.launch_counts()
+    for name in ("adc_scan_batch", "adc_scan", "hop_adc", "hop_gather"):
+        assert counts[f"{name}_i32"] > 0 and counts[name] == 0, counts
+
+
+@pytest.mark.parametrize("m,k", [(64, 1024), (208, 256)])
+def test_u8_chunked_kernels_match_plain(dev, m, k):
+    """uint8 codes whose LUT passes 200 KB go in subspace chunks, each
+    launch continuing the sums: adc_scan_batch stays bit-exact."""
+    codes, luts = _wide_inputs(dev, 2049, m, min(k, 256), 7, seed=m,
+                               dtype=torch.uint8)
+    luts = torch.rand((7, m, k), device=dev) * 4.0
+    ops.reset_launch_counts()
+    torch.testing.assert_close(ops.adc_scan_batch(codes, luts),
+                               ref.adc_scan_batch_ref(codes, luts), rtol=0, atol=0)
+    assert ops.launch_counts()["adc_scan_batch"] == 2
+    ids = torch.randint(0, 2049, (7, 64), device=dev, dtype=torch.int32)
+    torch.testing.assert_close(ops.hop_adc(codes, ids, luts, m_prefix=m - 3),
+                               ref.hop_adc_ref(codes[:, :m - 3], ids, luts[:, :m - 3]),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("m", [128, 201])
+def test_adc_scan_fs_chunked_is_exact(dev, m):
+    """M > 100 splits the paired table into byte chunks; int32 sums exact."""
+    rng = np.random.default_rng(m)
+    codes = torch.from_numpy(rng.integers(0, 16, (3001, m)).astype(np.uint8)).to(dev)
+    packed = pack.pack_codes(codes)
+    luts = torch.from_numpy(rng.integers(0, 256, (9, m, 16)).astype(np.uint8)).to(dev)
+    assert len(kadcfs.byte_chunks(packed.shape[1])) >= 2
+    torch.testing.assert_close(kadcfs.adc_scan_fs(packed, luts),
+                               ref.adc_scan_fs_acc(packed, luts), rtol=0, atol=0)

@@ -208,8 +208,16 @@ def test_checkpoint_drop_skips_leaf(tmp_path):
 
 
 def test_checkpoint_bf16_leaf_is_a_clear_type_error(tmp_path):
-    with pytest.raises(TypeError, match="numpy"):
-        tckpt.save(str(tmp_path), 1, w={"a": torch.ones(2, dtype=torch.bfloat16)})
+    """A bfloat16 leaf saves as its raw bytes under the ``ml_dtypes`` name
+    and restores as bfloat16 (it raised before fault C3 was repaired); a
+    leaf with neither a numpy nor a raw-byte name is still a clear
+    TypeError."""
+    w = torch.tensor([1.5, -2.25], dtype=torch.bfloat16)
+    tckpt.save(str(tmp_path), 1, w={"a": w})
+    got = tckpt.restore(str(tmp_path), device="cpu")["w"]["a"]
+    assert got.dtype == torch.bfloat16 and torch.equal(got, w)
+    with pytest.raises(TypeError, match="cannot save"):
+        tckpt.save(str(tmp_path), 2, w={"a": torch.ones(2, dtype=torch.complex32)})
 
 
 def test_checkpoint_restore_retries_injected_io_faults(tmp_path):
@@ -393,3 +401,28 @@ def test_resolve_quorum_equals_jax(alive, lat, deadline, quorum):
     t = tfault.resolve_quorum(alive, lat, deadline, quorum)
     j = jfault.resolve_quorum(alive, lat, deadline, quorum)
     assert tuple(t) == tuple(j)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float8_e4m3fn", "float8_e5m2"])
+def test_checkpoint_raw_dtype_leaves_round_trip_with_the_reference(tmp_path, dtype):
+    """Fault C3, both ways: a port bf16 / float8 leaf restores in the
+    reference as the ml_dtypes array of the same bytes, a reference leaf
+    restores in the port as the torch dtype of the same bytes, and the two
+    packages write the same files byte for byte."""
+    import ml_dtypes
+
+    vals = np.array([[1.5, -2.25, 0.125], [3.0, -0.5, 448.0]], np.float32)
+    t = torch.from_numpy(vals).to(getattr(torch, dtype))
+    tckpt.save(str(tmp_path / "t"), 1, params={"w": t, "n": torch.arange(3)})
+    got = jckpt.restore(str(tmp_path / "t"))["params"]["w"]
+    assert str(got.dtype) == dtype
+    bits, np_bits = ((torch.int16, np.int16) if dtype == "bfloat16"
+                     else (torch.uint8, np.uint8))
+    np.testing.assert_array_equal(np.asarray(got).view(np_bits), t.view(bits).numpy())
+    jckpt.save(str(tmp_path / "j"), 1, params={"w": np.asarray(got), "n": np.arange(3)})
+    back = tckpt.restore(str(tmp_path / "j"), device="cpu")["params"]["w"]
+    assert back.dtype == t.dtype and torch.equal(back.view(bits), t.view(bits))
+    for name in ("params.json", "params.npz"):
+        assert ((tmp_path / "t" / "step_00000001" / name).read_bytes()
+                == (tmp_path / "j" / "step_00000001" / name).read_bytes()), name
+    assert np.dtype(getattr(ml_dtypes, dtype)).name == dtype

@@ -22,6 +22,7 @@ from repro_torch.kernels import hop_gather as t_hopg
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import pq_pairwise as t_pqp
 from repro_torch.kernels import ref as tref
+from repro_torch.pq import base as t_base
 
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -206,9 +207,12 @@ def test_fs_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_ops_reject_codes_beyond_uint8():
-    with pytest.raises(ValueError, match="K=256"):
-        tops.adc_scan_batch(torch.zeros((4, 2), dtype=torch.int32),
-                            torch.zeros((1, 2, 300)))
+    """Codes beyond uint8 are no longer refused (fault C1): int32 codes at
+    K=300 are read unnarrowed, so a code of 299 scores LUT column 299."""
+    codes = torch.tensor([[299, 0], [256, 255]], dtype=torch.int32)
+    luts = torch.arange(600, dtype=torch.float32).reshape(1, 2, 300)
+    got = tops.adc_scan_batch(codes, luts)
+    assert got.tolist() == [[299.0 + 300.0, 256.0 + 555.0]]
 
 
 def test_launch_counts_reset_and_cpu_path_launches_nothing():
@@ -227,7 +231,9 @@ def test_launch_counts_reset_and_cpu_path_launches_nothing():
     assert tops.launch_counts() == {"pq_pairwise": 0, "hop_adc": 0,
                                     "adc_scan_batch": 0, "hop_adc_fs": 0,
                                     "adc_scan_fs": 0, "adc_scan": 0,
-                                    "hop_gather": 0}
+                                    "hop_gather": 0, "hop_adc_i32": 0,
+                                    "adc_scan_batch_i32": 0, "adc_scan_i32": 0,
+                                    "hop_gather_i32": 0}
 
 
 @pytest.mark.parametrize("m,k", [(16, 256), (7, 100), (32, 256), (200, 256),
@@ -304,3 +310,55 @@ def test_kmeans_assign_ref_and_pad_rows_to_multiple_match_jax():
         np.testing.assert_array_equal(
             tops.pad_rows_to_multiple(torch.from_numpy(a), mult).numpy(),
             np.asarray(jops.pad_rows_to_multiple(jnp.asarray(a), mult)))
+
+
+def test_ops_int32_codes_at_k512_equal_jax():
+    """Fault C1: JAX's ``ops`` at N=600, M=4, K=512 int32 codes, and the
+    port's on the CPU (their plain versions) — every entry point."""
+    rng = np.random.default_rng(0)
+    codes = rng.integers(0, 512, (600, 4)).astype(np.int32)
+    ids = rng.integers(0, 600, (3, 8)).astype(np.int32)
+    luts = (rng.random((3, 4, 512)) * 4.0).astype(np.float32)
+    for mp in (0, 2):
+        want = jops.hop_adc(codes, ids, luts, m_prefix=mp)
+        assert want.shape == (3, 8)
+        got = tops.hop_adc(T(codes), T(ids), T(luts), m_prefix=mp)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tops.adc_scan_batch(T(codes), T(luts)).numpy(),
+                               np.asarray(jops.adc_scan_batch(codes, luts)),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tops.adc_scan(T(codes), T(luts[0])).numpy(),
+                               np.asarray(jops.adc_scan(codes, luts[0])),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tops.hop_gather(T(codes[ids]), T(luts)).numpy(),
+                               np.asarray(jops.hop_gather(codes[ids], luts)),
+                               rtol=1e-5, atol=1e-5)
+    # codes above 255 survive the port's dtype boundary unnarrowed
+    wide = t_base.QuantizerModel(torch.eye(8), T(rng.normal(size=(2, 512, 4)).astype(np.float32)))
+    assert int(t_base.encode(wide, T(rng.normal(size=(50, 8)).astype(np.float32))).max()) > 255
+
+
+@pytest.mark.parametrize("m,k", [(16, 256), (64, 1024), (50, 1024), (51, 1024),
+                                 (4, 512), (1, 51200), (300, 16)])
+def test_subspace_chunks_cover_m_in_order_within_shared_memory(m, k):
+    """Fault C2: the chunks of a LUT beyond 200 KB tile [0, M) in order,
+    each within the budget; a LUT that fits is one chunk. ``m_prefix`` is
+    chunked as its own first m′ subspaces."""
+    chunks = t_hop.subspace_chunks(m, k)
+    assert chunks[0][0] == 0 and chunks[-1][1] == m
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+    assert all(0 < (j1 - j0) * k * 4 <= t_hop.MAX_LUT_BYTES for j0, j1 in chunks)
+    assert (len(chunks) == 1) == (m * k * 4 <= t_hop.MAX_LUT_BYTES)
+    mp = max(1, m - 3)
+    assert t_hop.subspace_chunks(mp, k)[-1][1] == mp
+    with pytest.raises(ValueError, match="shared memory"):
+        t_hop.subspace_chunks(1, 51201)
+
+
+@pytest.mark.parametrize("mb", [8, 50, 51, 64, 101, 128])
+def test_adc_scan_fs_byte_chunks_cover_the_row(mb):
+    chunks = t_adcfs.byte_chunks(mb)
+    assert chunks[0][0] == 0 and chunks[-1][1] == mb
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+    assert all((b1 - b0) * 256 * 16 <= t_adcfs.MAX_TABLE_BYTES for b0, b1 in chunks)
+    assert (len(chunks) == 1) == (mb <= 50)

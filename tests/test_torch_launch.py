@@ -150,7 +150,7 @@ def test_serve_stdin_survives_garbage_lines(tmp_path, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("scenario,item", [("sharded-graph", "item 14"),
-                                           ("streaming", "item 12"), ("disk", "item 13")])
+                                           ("disk", "item 13")])
 def test_unported_scenario_exits_with_its_queue_item(tmp_path, scenario, item):
     with pytest.raises(SystemExit, match=f"not ported.*{item}"):
         tserve.main(["--ckpt-dir", str(tmp_path), "--scenario", scenario,
