@@ -12,9 +12,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    sources; four of them also as int32-code variants), one ``nvcc`` per
    source, all at once;
 3. parity: each kernel against its plain PyTorch version on CUDA tensors, at
-   the main path's shapes and at edge shapes (the fs4 kernels ``hop_adc_fs``
-   and ``adc_scan_fs`` exactly, on their int32 sums; ``adc_scan`` and
-   ``hop_gather`` also against ``adc_scan_batch`` and ``hop_adc``), the
+   the main path's shapes and at edge shapes (``hop_adc``, ``adc_scan`` and
+   ``adc_scan_batch``, in both code types, bit for bit, on every timed
+   output too; the fs4 kernels ``hop_adc_fs`` and ``adc_scan_fs`` exactly,
+   on their int32 sums; ``adc_scan`` and ``hop_gather`` also against
+   ``adc_scan_batch`` and ``hop_adc``), the
    ``pq_pairwise`` gradient against autograd of its plain version, then
    CUDA-event times of the kernel, the plain version and, where one PyTorch
    call computes the same function, that call (``cdist`` for
@@ -27,7 +29,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    launch reads HBM as its bound assumes (the L2-warm time is logged
    beside), ``hop_adc_fs`` beside an empty kernel on its grid; the fs4
    dequant pass is timed beside ``adc_scan_fs``, ``adc_scan_batch`` beside
-   its shared-memory floor, the PyTorch backward of ``pq_pairwise`` at the
+   its shared-memory floor, ``adc_scan`` beside the floor its timed codes'
+   bank conflicts set, ``hop_adc`` and ``hop_adc_i32`` beside a bound
+   counted on the 32-byte sectors their timed ids, rows and LUT entries
+   touch (``sector_bound``), the PyTorch backward of ``pq_pairwise`` at the
    default training step's shape); then the int32-code variants of
    ``adc_scan_batch``, ``adc_scan``, ``hop_adc`` and ``hop_gather`` at
    K=512 and the subspace chunking past shared memory (M=64, K=1024 on
@@ -42,13 +47,16 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    the graph's own recall@10 under exact-distance routing, ``encode``,
    ``InMemoryEngine`` / ``HybridEngine`` search (k=10, h=32) and the
    exhaustive ADC of ``pq.base.adc``, with every kernel's launch count read
-   around this phase alone;
+   around this phase alone, and one traced search: the device's busy share,
+   its kernel count and ``hop_adc``'s mean device time per launch beside its
+   phase-3 L2-cold and L2-warm times;
 6. fs4 path at full width, on phase 5's dataset and graph:
    ``train_pq_fs4(M=16)``, ``encode`` + ``pack_codes``, quantized LUTs,
    ``InMemoryEngine`` / ``HybridEngine`` search (k=10, h=32) and the
    one-shard ``ShardedEngine`` scan with exact rerank (k=10), the same
-   engine over phase 5's u8 codes, their QPS, a traced fs4 search, launch
-   counts read around this phase alone; then the checks (kernel- vs
+   engine over phase 5's u8 codes, their QPS, a traced fs4 search (with
+   ``hop_adc_fs``'s mean time per launch, as in phase 5), launch counts read
+   around this phase alone; then the checks (kernel- vs
    plain-routed top-10, fs4 vs f32 ADC within M·scale, fs4 memory below
    u8) and the times of the scan engines' kernels (u8), dequant (fs4) and
    top-k at 1000 x 1M;
@@ -117,6 +125,11 @@ over those counted runs; the int32 variants are rows of their own), the ``nvidia
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without CUDA, or run outside the repository, it exits non-zero and prints no
 result. It imports nothing of JAX and nothing of the JAX package.
+
+``--retrieval-us [--src DIR]`` runs none of this: it times phase 9's
+per-query loop alone (``retrieval_us``) on seeded codes, with the
+``repro_torch`` of ``DIR``, and prints one JSON line, so two trees (one
+unpacked by ``git archive``) compare in one chip call.
 """
 
 from __future__ import annotations
@@ -127,6 +140,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -243,6 +257,34 @@ def touched_bytes(ids, row_bytes: int) -> int:
     return 32 * int(torch.unique(torch.cat([first, last])).numel())
 
 
+def lut_sector_bytes(codes, ids, luts) -> int:
+    """Bytes of the 32-byte sectors of the (Q, M, K) f32 ``luts`` that
+    ``hop_adc(codes, ids, luts)`` reads: entry (q, j, codes[ids[q, i], j])
+    of every lane and subspace, each sector once."""
+    import torch
+
+    q, m, k = luts.shape
+    dev = luts.device
+    entry = ((torch.arange(q, device=dev)[:, None, None] * m
+              + torch.arange(m, device=dev)) * k + codes[ids.long()].long())
+    return 32 * int(torch.unique(entry.flatten() // 8).numel())
+
+
+def sector_bound(codes, ids, luts) -> float:
+    """``hop_adc``'s bound in ms counted on its inputs, beside the row's
+    bound (which reads every LUT entry and 16-byte rows): the ids, the
+    32-byte sectors of the code rows and of the LUT entries they name, and
+    the output, over the HBM rate."""
+    nbytes = (8 * ids.numel() + touched_bytes(ids, codes.shape[1] * codes.element_size())
+              + lut_sector_bytes(codes, ids, luts))
+    return nbytes / HBM_BYTES_S * 1e3
+
+
+def sector_note(row: dict) -> str:
+    return (f", sector bound {row['sector_bound_ms']:.4f} ms (the 32-byte sectors these "
+            "ids, rows and LUT entries touch)" if "sector_bound_ms" in row else "")
+
+
 def l2_note(row: dict) -> str:
     return (f" (L2-cold over {row['cold_sets']} input sets; L2-warm "
             f"{row['l2_warm_ms']:.4f} ms)" if "l2_warm_ms" in row else "")
@@ -301,17 +343,46 @@ def library_time(codes, luts, want, *, graph: bool = False,
     return ms, err
 
 
-def smem_floor_ms(lookup_bytes: float) -> float:
-    """Least time to read ``lookup_bytes`` from shared memory with no bank
-    conflict: 128 bytes per clock per SM, at the card's SM count and its
+def sm_clocks_per_ms() -> float:
+    """SM clocks per millisecond on the whole card: its SM count times its
     maximum SM clock (``nvidia-smi``)."""
     import torch
 
     mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
                                 "--format=csv,noheader,nounits"], capture_output=True,
                                text=True, timeout=60, check=True).stdout.split()[0])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return lookup_bytes / (128 * sms * mhz * 1e6) * 1e3
+    return torch.cuda.get_device_properties(0).multi_processor_count * mhz * 1e3
+
+
+def smem_floor_ms(lookup_bytes: float) -> float:
+    """Least time to read ``lookup_bytes`` from shared memory with no bank
+    conflict: 128 bytes per clock per SM."""
+    return lookup_bytes / 128 / sm_clocks_per_ms()
+
+
+def lookup_floor_ms(codes, k: int) -> tuple[float, float]:
+    """Least time of the one-query scan's shared-memory lookups on these
+    codes, and the wavefronts a warp-wide lookup takes on average. A warp
+    scores 32 consecutive rows; at each subspace its 32 lookups in one LUT
+    row of ``k`` f32 entries take as many wavefronts (one per SM per clock)
+    as the fullest of the 32 banks holds distinct entries (a word read by
+    several lanes is broadcast)."""
+    import torch
+
+    n, m = codes.shape
+    w = -(-n // 32)
+    c = torch.zeros((w * 32, m), dtype=torch.long, device=codes.device)
+    c[:n] = codes.long()
+    fronts = 0
+    for j in range(m):  # (warps, k) entries hit, then distinct entries per bank
+        hit = torch.zeros((w, k), dtype=torch.bool, device=codes.device)
+        hit.scatter_(1, c[:, j].view(w, 32), True)
+        if n % 32:  # the last warp's idle lanes look nothing up
+            hit[-1] = False
+            hit[-1, codes[(w - 1) * 32:, j].long()] = True
+        per_bank = hit.view(w, -1, 32).sum(dim=1)   # entry e sits in bank e % 32
+        fronts += int(per_bank.max(dim=1).values.sum())
+    return fronts / sm_clocks_per_ms(), fronts / (w * m)
 
 
 def compare(name: str, got, want, *, rtol: float, atol: float) -> float:
@@ -386,13 +457,20 @@ def parity_and_timing(n_base: int, n_query: int) -> dict:
     codes8 = ops.pad_sentinel_row(rand_codes(5003, 8))
     cases.append((codes8, torch.randint(0, 5004, (37, 72), generator=g, device=dev,
                                         dtype=torch.int32), rand_luts(37, 8), 0))
+    # rows one byte off 16 (the code-by-code path at M=16)
+    flat16 = torch.empty(5004 * m + 1, dtype=torch.uint8, device=dev)
+    flat16[1:] = ops.pad_sentinel_row(rand_codes(5003, m)).reshape(-1)
+    cases.append((flat16[1:].view(5004, m), torch.randint(0, 5004, (37, 64), generator=g,
+                                                          device=dev, dtype=torch.int32),
+                  rand_luts(37, m), 0))
     for codes, ids, luts, mp in cases:
         want = (ref.hop_adc_ref(codes[:, :mp], ids, luts[:, :mp]) if mp
                 else ref.hop_adc_ref(codes, ids, luts))
         note("hop_adc", compare(f"hop_adc N+1={codes.shape[0]} M={codes.shape[1]} "
-                                f"Q={ids.shape[0]} R'={ids.shape[1]} m_prefix={mp}",
+                                f"Q={ids.shape[0]} R'={ids.shape[1]} m_prefix={mp}"
+                                f"{' (unaligned rows)' if codes.data_ptr() % 16 else ''}",
                                 ops.hop_adc(codes, ids, luts, m_prefix=mp), want,
-                                rtol=1e-6, atol=1e-6))
+                                rtol=0.0, atol=0.0))
 
     # adc_scan_batch, bit for bit: the main path's 1000 x N_base; ragged N,
     # M=8, odd M (byte loads), M=32 (a 4-query tile), K < 256, query counts
@@ -458,7 +536,12 @@ def parity_and_timing(n_base: int, n_query: int) -> dict:
         l2_warm_ms=graph_ms(lambda: kern(*sets[0]), iters=200),
         plain_ms=graph_ms(rotating(ref.hop_adc_ref, sets), iters=50),
         issue_ms=cuda_ms(rotating(kern, sets), iters=200),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, library_call=None))
+        bound_ms=b_ms, bound_by=b_by, sector_bound_ms=sector_bound(*sets[0]),
+        library_ms=None, library_call=None))
+    kern(*sets[0])
+    note("hop_adc", compare(f"hop_adc N+1={n_base + 1} M={m} Q={n_query} R'=64 (the timed "
+                            "output)", hout, ref.hop_adc_ref(*sets[0]), rtol=0.0, atol=0.0))
+    rows[-1]["max_abs_err"] = errs["hop_adc"]
     del sets
 
     aout = torch.empty((n_query, n_base), device=dev)
@@ -485,7 +568,7 @@ def parity_and_timing(n_base: int, n_query: int) -> dict:
                  if "smem_floor_ms" in row else "")
         log(f"[time] {row['name']} {row['shape']}: kernel {row['ms']:.4f} ms{l2_note(row)}{issue}, "
             f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']}, bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']}){floor}")
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}){sector_note(row)}{floor}")
     return {row["name"]: row for row in rows}
 
 
@@ -651,16 +734,21 @@ def scorer_parity_and_timing(n_base: int, n_query: int) -> tuple[dict, dict]:
     # loads), K < 256, a single row; each also as a row of adc_scan_batch
     codes_full = rand_codes((n_base, m))
     lut_full = rand_lut((m, k))
+    flat = torch.empty(4099 * m + 1, dtype=torch.uint8, device=dev)
+    flat[1:] = rand_codes((4099, m)).reshape(-1)
     for codes, lut in ((codes_full, lut_full), (rand_codes((4099, m)), rand_lut((m, k))),
                        (rand_codes((3001, 7)), rand_lut((7, k))),
                        (rand_codes((777, m), 16), rand_lut((m, 16))),
-                       (rand_codes((1, m)), rand_lut((m, k)))):
-        name = f"adc_scan N={codes.shape[0]} M={codes.shape[1]} K={lut.shape[1]}"
+                       (rand_codes((1, m)), rand_lut((m, k))),
+                       (rand_codes((2049, 32)), rand_lut((32, k))),
+                       (flat[1:].view(4099, m), rand_lut((m, k)))):
+        name = (f"adc_scan N={codes.shape[0]} M={codes.shape[1]} K={lut.shape[1]}"
+                f"{' (unaligned rows)' if codes.data_ptr() % 16 else ''}")
         got = ops.adc_scan(codes, lut)
         note("adc_scan", compare(name, got, ref.adc_scan_ref(codes, lut),
-                                 rtol=1e-6, atol=1e-6))
+                                 rtol=0.0, atol=0.0))
         compare(f"{name} vs adc_scan_batch row", got,
-                ops.adc_scan_batch(codes, lut[None])[0], rtol=1e-6, atol=1e-6)
+                ops.adc_scan_batch(codes, lut[None])[0], rtol=0.0, atol=0.0)
 
     # hop_gather: one beam round's (Q, R=64) pre-gathered rows; odd M,
     # K < 256, Q = 1, R = 1; each also against hop_adc on the same ids
@@ -730,10 +818,16 @@ def scorer_parity_and_timing(n_base: int, n_query: int) -> tuple[dict, dict]:
         plain_ms=cuda_ms(rotating(ref.adc_scan_ref, sets), iters=10),
         issue_ms=cuda_ms(rotating(kern, sets), iters=100),
         bound_ms=b_ms, bound_by=b_by, library_call=LIBRARY_CALL))
+    want = ref.adc_scan_ref(codes_full, lut_full)
+    kern(codes_full, lut_full)
+    note("adc_scan", compare(f"adc_scan N={n_base} M={m} K={k} (the timed output)", sout,
+                             want, rtol=0.0, atol=0.0))
+    rows[-1]["max_abs_err"] = errs["adc_scan"]
+    rows[-1]["smem_floor_ms"], rows[-1]["wavefronts_per_lookup"] = lookup_floor_ms(
+        codes_full, k)
     rows[-1]["library_ms"], rows[-1]["library_err"] = library_time(
-        codes_full, lut_full, ref.adc_scan_ref(codes_full, lut_full), graph=True,
-        more=sets[1:])
-    del sets
+        codes_full, lut_full, want, graph=True, more=sets[1:])
+    del sets, want
 
     _, ids, luts = cases[0]
     rows_g = codes_p[ids.long()]
@@ -757,10 +851,13 @@ def scorer_parity_and_timing(n_base: int, n_query: int) -> tuple[dict, dict]:
         rows_g, luts, ref.hop_gather_ref(rows_g, luts), graph=True, more=sets[1:])
     del sets
     for row in rows:
+        floor = (f", shared-memory floor {row['smem_floor_ms']:.4f} ms (bank conflicts "
+                 f"of these codes: {row['wavefronts_per_lookup']:.3f} wavefronts per "
+                 "warp-wide lookup)" if "smem_floor_ms" in row else "")
         log(f"[time] {row['name']} {row['shape']}: kernel {row['ms']:.4f} ms{l2_note(row)} "
             f"(back-to-back launches from the host: {row['issue_ms']:.4f} ms), plain "
             f"{row['plain_ms']:.4f} ms, library {row['library_ms']}, bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}){floor}")
     return {row["name"]: row for row in rows}, backward
 
 
@@ -807,7 +904,7 @@ def wide_parity_and_timing(n_base: int, n_query: int) -> dict:
         if sfx:
             note("adc_scan_batch_i32", e)
         e = compare(f"adc_scan{sfx} {tag}", ops.adc_scan(codes, luts[0]),
-                    ref.adc_scan_ref(codes, luts[0]), rtol=1e-5, atol=1e-4)
+                    ref.adc_scan_ref(codes, luts[0]), rtol=0.0, atol=0.0)
         if sfx:
             note("adc_scan_i32", e)
         for mp in (0, codes.shape[1] // 2 + 1):
@@ -815,7 +912,7 @@ def wide_parity_and_timing(n_base: int, n_query: int) -> dict:
                     else ref.hop_adc_ref(codes, ids, luts))
             e = compare(f"hop_adc{sfx} {tag} m_prefix={mp}",
                         ops.hop_adc(codes, ids, luts, m_prefix=mp), want,
-                        rtol=1e-5, atol=1e-4)
+                        rtol=0.0, atol=0.0)
             if sfx:
                 note("hop_adc_i32", e)
         rows = codes[ids.long()]
@@ -891,10 +988,11 @@ def wide_parity_and_timing(n_base: int, n_query: int) -> dict:
         cold_sets=len(sets), l2_warm_ms=graph_ms(lambda: kern(*sets[0]), iters=200))
     note("hop_adc_i32", compare(f"hop_adc_i32 N+1={n_base + 1} M={m} K={k} Q={n_query} "
                                 "R'=64 (the timed output)", hout,
-                                ref.hop_adc_ref(codes_p, ids, luts), rtol=1e-5, atol=1e-4))
+                                ref.hop_adc_ref(codes_p, ids, luts), rtol=0.0, atol=0.0))
     row.update(ms=graph_ms(rotating(kern, sets), iters=200),
                plain_ms=graph_ms(rotating(ref.hop_adc_ref, sets), iters=50),
-               bound_ms=b_ms, bound_by=b_by, library_ms=None, library_call=None)
+               bound_ms=b_ms, bound_by=b_by, sector_bound_ms=sector_bound(*sets[0]),
+               library_ms=None, library_call=None)
     rows.append(row)
     del sets
 
@@ -912,7 +1010,7 @@ def wide_parity_and_timing(n_base: int, n_query: int) -> dict:
         cold_sets=len(sets), l2_warm_ms=graph_ms(lambda: kern(*sets[0]), iters=100))
     want = ref.adc_scan_ref(codes_full, luts[0])
     note("adc_scan_i32", compare(f"adc_scan_i32 N={n_base} M={m} K={k} (the timed output)",
-                                 sout, want, rtol=1e-5, atol=1e-4))
+                                 sout, want, rtol=0.0, atol=0.0))
     row.update(ms=graph_ms(rotating(kern, sets), iters=100),
                plain_ms=cuda_ms(rotating(ref.adc_scan_ref, sets), iters=10),
                bound_ms=b_ms, bound_by=b_by, library_call=LIBRARY_CALL)
@@ -950,7 +1048,7 @@ def wide_parity_and_timing(n_base: int, n_query: int) -> dict:
     for row in rows:
         log(f"[time] {row['name']} {row['shape']}: kernel {row['ms']:.4f} ms{l2_note(row)}, plain "
             f"{row['plain_ms']:.4f} ms, library {row['library_ms']}, bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}){sector_note(row)}")
     return {row["name"]: row for row in rows}
 
 
@@ -1020,7 +1118,30 @@ def kernel_times(prof, tag: str, label: str, wall_ms: float) -> dict:
     for name, (ms, n) in top:
         log(f"[{tag}]   {ms:8.3f} ms  x{n:<5d} {name[:90]}")
     return {"device_ms": device_ms, "wall_ms": wall_ms, "busy_share": device_ms / wall_ms,
-            "top": [(name[:90], ms, n) for name, (ms, n) in top]}
+            "kernels": sum(n for _, n in per_kernel.values()),
+            "top": [(name[:90], ms, n) for name, (ms, n) in top], "per_kernel": per_kernel}
+
+
+def in_search(busy: dict, pattern: str, row: dict, label: str) -> dict:
+    """Mean device time per launch of the kernels whose name holds
+    ``pattern`` inside a traced search (``device_busy``), logged beside the
+    same kernel's phase-3 times alone, L2-cold and L2-warm: where the mean
+    sits between them says whether the search finds its LUTs in L2."""
+    if busy["device_ms"] is None:
+        log(f"[trace] {row['name']} inside one {label} search: not measured (no device time)")
+        return {}
+    ms = n = 0
+    for name, (k_ms, k_n) in busy["per_kernel"].items():
+        if pattern in name:
+            ms, n = ms + k_ms, n + k_n
+    check(n > 0, f"the traced {label} search launched no {row['name']}")
+    note = {"launches": n, "mean_us": ms / n * 1e3, "l2_cold_us": row["ms"] * 1e3,
+            "l2_warm_us": row["l2_warm_ms"] * 1e3}
+    log(f"[trace] {row['name']} inside one {label} search: {n} launches, mean "
+        f"{note['mean_us']:.2f} us of device time per launch; alone at one beam round's "
+        f"shape (phase 3): L2-cold {note['l2_cold_us']:.2f} us, L2-warm "
+        f"{note['l2_warm_us']:.2f} us")
+    return note
 
 
 def device_busy(fn, wall_s: float, label: str = "InMemoryEngine") -> dict:
@@ -1450,6 +1571,54 @@ def train_path(ds, gt, graph, pq_model, pq_main: dict) -> tuple[dict, object, ob
 # phase 9: the retrieval scorer over the RPQ codes
 # --------------------------------------------------------------------------
 
+def per_query_us(fn, n_queries: int) -> float:
+    """Host wall time per call of ``fn(i)`` for i < ``n_queries``, one
+    query after another as a caller issues them, after one untimed call,
+    between two synchronizations."""
+    import torch
+
+    fn(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_queries):
+        fn(i)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n_queries * 1e6
+
+
+def retrieval_us(n: int = 1_000_000, m: int = 16, k: int = 256, n_queries: int = 100,
+                 top: int = 100, reps: int = 11, seed: int = 0) -> dict:
+    """``--retrieval-us``: phase 9's per-query loop alone, ``adc_scan`` and
+    ``score_candidates_adc``, ``reps`` times each (each time and the
+    median; the host's clock is noisy), on seeded uniform (n, m)
+    uint8 codes and ``n_queries`` f32 LUTs made on the card, with whichever
+    ``repro_torch`` is first on ``sys.path``. Two trees' wrappers and
+    kernels compare in one chip call, each run in a process of its own."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import recsys
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    codes = torch.randint(0, k, (n, m), generator=g, device="cuda",
+                          dtype=torch.int32).to(torch.uint8)
+    luts = torch.rand((n_queries, m, k), generator=g, device="cuda")
+    check(torch.equal(ops.adc_scan(codes, luts[0]), ref.adc_scan_ref(codes, luts[0])),
+          "adc_scan differs from its plain version")
+    ops.reset_launch_counts()
+    out = {"adc_scan_us": [], "score_candidates_adc_us": []}
+    for _ in range(reps):
+        out["score_candidates_adc_us"].append(per_query_us(
+            lambda i: recsys.score_candidates_adc(luts[i], codes, k=top), n_queries))
+        out["adc_scan_us"].append(per_query_us(lambda i: ops.adc_scan(codes, luts[i]),
+                                               n_queries))
+    for key in ("adc_scan_us", "score_candidates_adc_us"):
+        out[key + "_median"] = statistics.median(out[key])
+    out["launches"] = ops.launch_counts()["adc_scan"]
+    check(out["launches"] == 2 * reps * (n_queries + 1), "adc_scan was not launched per query")
+    return out
+
+
 def retrieval_path(ds, cfg, params, codes, n_queries: int = 100, k: int = 100) -> dict:
     """``score_candidates_adc`` (the ``adc_scan`` kernel and a stable
     top-k) over the 1M RPQ codes for single queries, against the plain
@@ -1473,18 +1642,11 @@ def retrieval_path(ds, cfg, params, codes, n_queries: int = 100, k: int = 100) -
     check(all(bool(torch.isfinite(v).all()) and v.shape == (k,) for v, _ in got),
           "retrieval scores not finite or of the wrong shape")
 
-    def per_query_us(fn):
-        fn(0)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(n_queries):
-            fn(i)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / n_queries * 1e6
-
-    adc_us = per_query_us(lambda i: recsys.score_candidates_adc(luts[i], codes, k=k))
-    exact_us = per_query_us(lambda i: recsys.score_candidates_exact(qs[i], ds.base, k=k))
-    scan_us = per_query_us(lambda i: ops.adc_scan(codes, luts[i]))
+    adc_us = per_query_us(lambda i: recsys.score_candidates_adc(luts[i], codes, k=k),
+                          n_queries)
+    exact_us = per_query_us(lambda i: recsys.score_candidates_exact(qs[i], ds.base, k=k),
+                            n_queries)
+    scan_us = per_query_us(lambda i: ops.adc_scan(codes, luts[i]), n_queries)
     log(f"[retrieval] {n_queries} single queries, k={k}, over {codes.shape[0]} RPQ codes: "
         f"kernel top-{k} ids equal the plain scan's on {same:.4f} of queries")
     log(f"[retrieval] per query: score_candidates_adc {adc_us:.1f} us (adc_scan alone "
@@ -2129,9 +2291,16 @@ def main() -> int:
     ap.add_argument("--vamana-batch", type=int, default=VAMANA_BATCH,
                     help="nodes per batched Vamana insert round")
     ap.add_argument("--out", default=None, help="also write the results as JSON here")
+    ap.add_argument("--retrieval-us", action="store_true",
+                    help="only time phase 9's per-query loop on seeded 1M x 16 uint8 "
+                         "codes, with the repro_torch of --src, and print it as JSON")
+    ap.add_argument("--src", default=SRC,
+                    help="the src directory --retrieval-us imports repro_torch from "
+                         "(default: this checkout's)")
     args = ap.parse_args()
+    src = args.src if args.retrieval_us else SRC
 
-    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+    if not os.path.isdir(os.path.join(src, "repro_torch")):
         print("chip_smoke.py: src/repro_torch not found beside this script; "
               "run it from a checkout of the repository", file=sys.stderr)
         return 3
@@ -2140,7 +2309,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: CUDA is not available", file=sys.stderr)
         return 2
-    sys.path.insert(0, SRC)
+    sys.path.insert(0, src)
     from repro_torch.kernels import _build
 
     t_start = time.perf_counter()
@@ -2149,6 +2318,10 @@ def main() -> int:
                          text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
     log(f"[device] {smi} | torch {torch.__version__} CUDA {torch.version.cuda} | {kind}")
+    if args.retrieval_us:
+        _build.build(("adc_scan",))
+        print(json.dumps({"src": src, "device": smi, **retrieval_us()}))
+        return 0
 
     t0 = time.perf_counter()
     reports = _build.build()
@@ -2172,8 +2345,12 @@ def main() -> int:
     log(f"[small] done in {time.perf_counter() - t0:.1f} s")
     result, ds, gt, graph, pq_model, pq_codes, res_main = main_path(args)
     phases = {"main": result}
+    result["hop_adc_in_search"] = in_search(result["search_busy"], "hop_adc_kernel<",
+                                            kernels["hop_adc"], "InMemoryEngine")
     t0 = time.perf_counter()
     phases["fs4"], fs4_model, fs4_packed = fs4_path(ds, gt, graph, pq_model, pq_codes)
+    phases["fs4"]["hop_adc_fs_in_search"] = in_search(
+        phases["fs4"]["search_busy"], "hop_adc_fs", kernels["hop_adc_fs"], "fs4 InMemoryEngine")
     log(f"[fs4] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phases["gather"] = gather_path(ds, graph, pq_model, pq_codes)

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 into ``build/repro_torch_kernels/<name>-<hash>.so`` at the repository root,
-keyed by a hash of the source and the flags, so an edited source rebuilds
-and an unchanged one loads. :func:`build` starts one ``nvcc`` per missing
-library, all at once. Nothing here runs at import: the CPU tests import
-every module of the port, and there is no ``nvcc`` without CUDA.
+keyed by a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header rebuilds and an unchanged one loads.
+:func:`build` starts one ``nvcc`` per missing library, all at once. Nothing
+here runs at import: the CPU tests import every module of the port, and
+there is no ``nvcc`` without CUDA.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on anything but 0, because a refused launch never runs
@@ -45,7 +46,8 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    files = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+    src = b"".join(f.read_bytes() for f in files)
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -11,7 +11,10 @@ is computed here as the kernel computes it, so the CPU tests can check it.
 :func:`adc_scan` replaces ``repro/kernels/adc_scan.py::adc_scan``: one
 query's LUT against every code row, the retrieval scorer's scan
 (``models/recsys.score_candidates_adc``). It is bound by the code bytes and
-the (N,) output, 20 MB at 1M × 16.
+the (N,) output, 20 MB at 1M × 16; its random shared-memory lookups set a
+floor of about the same size. The 16-byte row vectors a thread holds are
+picked here (``hop_adc.row_vectors``); the kernel sizes its grid by its own
+occupancy.
 
 Callers go through :func:`repro_torch.kernels.ops.adc_scan_batch` and
 :func:`repro_torch.kernels.ops.adc_scan`.
@@ -24,7 +27,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.hop_adc import CODE_DTYPES, MAX_LUT_BYTES, subspace_chunks
+from repro_torch.kernels.hop_adc import (CODE_DTYPES, MAX_LUT_BYTES, prefetch_vectors,
+                                        row_vectors, subspace_chunks)
 
 # kernel launches since the last reset (chip_smoke.py reads them):
 launches = 0              # adc_scan_batch, uint8 codes
@@ -149,7 +153,7 @@ def _query_entry():
         fn = _build.load("adc_scan").adc_scan_launch
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
                        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _query_fn = fn
     return _query_fn
@@ -165,8 +169,9 @@ def launch_query(codes: torch.Tensor, lut: torch.Tensor,
     if n:
         size = codes.element_size()
         for j0, j1 in subspace_chunks(m, k, MAX_LUT_BYTES):
+            pre = prefetch_vectors(row_vectors(codes.data_ptr(), m, j0, j1 - j0, size))
             err = _query_entry()(codes.data_ptr() + j0 * size, size, n, m, j1 - j0,
-                                 lut.data_ptr() + j0 * k * 4, k, int(j0 > 0),
+                                 lut.data_ptr() + j0 * k * 4, k, int(j0 > 0), pre,
                                  out.data_ptr(), _build.stream_handle(codes.device))
             _build.check("adc_scan", err)
             if codes.dtype == torch.int32:

@@ -39,29 +39,72 @@
 // (Pallas, _adc_scan_kernel), the retrieval scorer's scan:
 //   out[n] = sum_j lut[j, codes[n, j]]
 // Bound: bytes, the N*M code bytes and the N f32 outputs (20 MB at 1M x 16).
-// A grid-stride loop over a few blocks per SM, so each block stages the
-// (M, K) LUT in shared memory ONCE (a block per 256 rows would re-read the
-// 16 KB LUT ~3900 times, 3x the kernel's own bytes in L2 traffic). One
-// thread per row reads its codes with 16-byte loads when M % 16 == 0 and the
-// rows are 16-byte aligned (byte loads otherwise) and sums the M lookups in
-// j order, as the plain version does; writes along N coalesce.
+// Beside it sits a shared-memory floor: N*M random f32 lookups, a warp's 32
+// in one LUT row taking as many wavefronts as the fullest bank holds
+// distinct words (~3.15 for uniform codes at K=256; a word several lanes
+// read is broadcast), 6.0 us at 1M x 16 on 132 SMs at 1.98 GHz
+// (chip_smoke.lookup_floor_ms counts it on the timed codes).
+// Design: a persistent grid (blocks of kScanThreads, as many as stay
+// resident, no more than the rows need), each block staging the (M, K) LUT
+// in shared memory once, by cp.async that runs under the threads' first
+// code loads. A thread owns the rows t, t + T, t +
+// 2T, ... (T threads in all, so a warp's loads and stores coalesce), reads
+// each row as 16-byte loads into registers when every row starts on 16 bytes
+// (uint8 and int32 rows alike; one load per code otherwise, kPre = 0), and
+// keeps kU rows in flight in a ring: a slot's next row is requested as soon
+// as its row is summed. Two one-vector rows (32 bytes) a thread in flight,
+// at 256 threads a block, beat 64 or 128 bytes and blocks of 128 or 512 on
+// the H100. Sums go in j order from 0.f (csrc/lut_rows.cuh), bit-equal to
+// the plain version, and out as streaming stores, so the 4 MB output does
+// not evict the codes from L2. The wrapper (adc_scan.py) picks kPre; the
+// grid's cap (SMs x resident blocks) is queried once per kernel instance,
+// device and LUT size (resident_blocks), not on every launch.
 
 // Both kernels take uint8 codes (K <= 256) or int32 codes (any K, the
 // reference's canonical dtype for K > 256): one template over the code type,
-// with the 16-byte row loads for uint8 only. A launch covers the subspaces
-// [j0, j0 + mc) of rows of ldc codes: the wrapper (adc_scan.py) splits M into
-// chunks whose f32 LUT slice fits in shared memory and launches once per
-// chunk, each launch after the first starting its sums from the partial
-// sums in `out`, so every sum stays one f32 chain in j order.
+// with the batch kernel's 16-byte row loads for uint8 only. A launch covers
+// the subspaces [j0, j0 + mc) of rows of ldc codes: the wrapper
+// (adc_scan.py) splits M into chunks whose f32 LUT slice fits in shared
+// memory and launches once per chunk, each launch after the first starting
+// its sums from the partial sums in `out`, so every sum stays one f32 chain
+// in j order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
+#include "lut_rows.cuh"
+
 namespace {
+
+// Starts copying the n floats at src into shared memory at dst (16-byte
+// aligned) and returns without waiting: 16 bytes per cp.async when src is
+// 16-byte aligned and n % 4 == 0, else 4. The block meets the copy at
+// wait_staged().
+__device__ __forceinline__ void stage_async(const float* __restrict__ src, int n,
+                                            float* dst) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if ((n & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    for (int i = threadIdx.x; i < (n >> 2); i += blockDim.x)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                   :: "r"(d + 16u * i), "l"(src + 4 * i) : "memory");
+  } else {
+    for (int i = threadIdx.x; i < n; i += blockDim.x)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                   :: "r"(d + 4u * i), "l"(src + i) : "memory");
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits for this thread's copies, then for the whole block's.
+__device__ __forceinline__ void wait_staged() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+}
 
 constexpr int kBatchThreads = 768;  // adc_scan_batch_kernel: 24 warps per SM
 constexpr int kScanThreads = 256;   // adc_scan_kernel
-constexpr int kScanBlocksPerSm = 4;
 
 template <int V> struct FloatVec;
 template <> struct FloatVec<1> { using T = float; };
@@ -168,35 +211,44 @@ adc_scan_batch_kernel(const CodeT* __restrict__ codes, int64_t n, int ldc,
   }
 }
 
-template <typename CodeT>
-__global__ void adc_scan_kernel(const CodeT* __restrict__ codes, int64_t n,
-                                int ldc, int m, const float* __restrict__ lut,
-                                int k, bool vec16, bool accumulate,
-                                float* __restrict__ out) {
-  extern __shared__ float lut_one[];  // (m, k)
-  const int mk = m * k;
-  for (int i = threadIdx.x; i < mk; i += blockDim.x) lut_one[i] = lut[i];
-  __syncthreads();
-
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       row < n; row += stride) {
-    const CodeT* c = codes + row * ldc;
-    float acc = accumulate ? out[row] : 0.f;
-    if (sizeof(CodeT) == 1 && vec16) {
-      for (int j0 = 0; j0 < m; j0 += 16) {
-        const uint4 v = *reinterpret_cast<const uint4*>(c + j0);
-        const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+// kPre: 16-byte vectors of a row held in registers (1, 2 or 4; rows on 16
+// bytes), kU rows of a thread in flight (two one-vector rows, else one row);
+// 0: one load per code, a row at a time.
+template <typename CodeT, int kPre>
+__global__ void __launch_bounds__(kScanThreads)
+adc_scan_kernel(const CodeT* __restrict__ codes, int64_t n, int ldc, int mc,
+                const float* __restrict__ lut, int k, bool accumulate,
+                float* __restrict__ out) {
+  constexpr int kU = kPre == 1 ? 2 : 1;
+  extern __shared__ float4 lut_raw[];  // (mc, k)
+  float* lut_s = reinterpret_cast<float*>(lut_raw);
+  const int nv = (mc * static_cast<int>(sizeof(CodeT)) + 15) / 16;
+  const int64_t threads = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t rows = t < n ? (n - 1 - t) / threads + 1 : 0;  // t, t + T, ...
+  uint4 v[kU][kPre > 0 ? kPre : 1];  // a ring of the next kU rows
+  const auto load = [&](int u, int64_t i) {  // the thread's i-th row into slot u
+    if constexpr (kPre > 0)
+      lut_rows::load_row(codes + (t + i * threads) * ldc, i < rows ? nv : 0, v[u]);
+  };
 #pragma unroll
-        for (int b = 0; b < 16; ++b) {
-          const int code = (w[b >> 2] >> (8 * (b & 3))) & 0xFF;
-          acc += lut_one[(j0 + b) * k + code];
-        }
-      }
-    } else {
-      for (int j = 0; j < m; ++j) acc += lut_one[j * k + static_cast<int>(c[j])];
+  for (int u = 0; u < kU; ++u) load(u, u);  // before the LUT copy is waited for
+  stage_async(lut, mc * k, lut_s);
+  wait_staged();
+  for (int64_t i0 = 0; i0 < rows; i0 += kU) {
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int64_t i = i0 + u;
+      if (i >= rows) break;
+      const int64_t row = t + i * threads;
+      float acc = accumulate ? out[row] : 0.f;
+      if constexpr (kPre > 0)
+        acc = lut_rows::sum_row<CodeT, kPre>(acc, v[u], codes + row * ldc, mc, lut_s, k);
+      else
+        acc = lut_rows::sum_row_scalar(acc, codes + row * ldc, mc, lut_s, k);
+      __stcs(out + row, acc);
+      load(u, i + kU);  // the slot's next row, kU rows ahead
     }
-    out[row] = acc;
   }
 }
 
@@ -253,31 +305,71 @@ cudaError_t launch_batch_tq(const void* codes, int64_t n, int ldc, int m,
   }
 }
 
-template <typename CodeT>
-cudaError_t launch_query(const void* codes, int64_t n, int ldc, int m,
-                         const void* lut, int k, int accumulate, void* out,
-                         cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(m) * k * sizeof(float);
-  cudaError_t err;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(adc_scan_kernel<CodeT>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+// SMs x blocks of adc_scan_kernel<CodeT, kPre> (kScanThreads, smem bytes of
+// shared memory) that stay resident on the current device, into *cap. The
+// shared-memory attribute and the occupancy query run once per kernel
+// instance, device and LUT size; the one-query scan is launched once per
+// retrieval query, so they would otherwise sit on its host path every time.
+template <typename CodeT, int kPre>
+cudaError_t resident_blocks(size_t smem, int64_t* cap) {
+  const auto kernel = adc_scan_kernel<CodeT, kPre>;
+  struct Plan { int dev; size_t smem; int64_t cap; };
+  static std::mutex lock;
+  static Plan plan = {-1, 0, 0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const int64_t need = (n + kScanThreads - 1) / kScanThreads;
-  const int64_t cap = static_cast<int64_t>(sms) * kScanBlocksPerSm;
+  const std::lock_guard<std::mutex> hold(lock);
+  if (plan.dev != dev || plan.smem != smem) {
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+    }
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kScanThreads, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    plan = {dev, smem, static_cast<int64_t>(sms) * per_sm};
+  }
+  *cap = plan.cap;
+  return cudaSuccess;
+}
+
+template <typename CodeT, int kPre>
+cudaError_t launch_query(const CodeT* codes, int64_t n, int ldc, int m, const float* lut,
+                         int k, bool accumulate, float* out, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(m) * k * sizeof(float);
+  int64_t cap = 0;
+  const cudaError_t err = resident_blocks<CodeT, kPre>(smem, &cap);
+  if (err != cudaSuccess) return err;
+  // as many blocks as stay resident, but no more than one per kU rows a
+  // thread in flight
+  constexpr int64_t kRowsPerBlock = kScanThreads * (kPre == 1 ? 2 : 1);
+  const int64_t need = (n + kRowsPerBlock - 1) / kRowsPerBlock;
   const unsigned blocks = static_cast<unsigned>(need < cap ? need : cap);
-  const bool vec16 = m % 16 == 0 && ldc % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(codes) % 16 == 0;
-  adc_scan_kernel<CodeT><<<blocks, kScanThreads, smem, stream>>>(
-      static_cast<const CodeT*>(codes), n, ldc, m, static_cast<const float*>(lut),
-      k, vec16, accumulate != 0, static_cast<float*>(out));
+  adc_scan_kernel<CodeT, kPre><<<blocks, kScanThreads, smem, stream>>>(codes, n, ldc, m, lut,
+                                                                     k, accumulate, out);
   return cudaGetLastError();
+}
+
+template <typename CodeT>
+cudaError_t launch_query_pre(int pre, const void* codes, int64_t n, int ldc, int m,
+                             const void* lut, int k, int accumulate, void* out,
+                             cudaStream_t s) {
+  const auto* c = static_cast<const CodeT*>(codes);
+  const auto* l = static_cast<const float*>(lut);
+  auto* o = static_cast<float*>(out);
+  const bool acc = accumulate != 0;
+  switch (pre) {
+    case 0: return launch_query<CodeT, 0>(c, n, ldc, m, l, k, acc, o, s);
+    case 1: return launch_query<CodeT, 1>(c, n, ldc, m, l, k, acc, o, s);
+    case 2: return launch_query<CodeT, 2>(c, n, ldc, m, l, k, acc, o, s);
+    case 4: return launch_query<CodeT, 4>(c, n, ldc, m, l, k, acc, o, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -300,14 +392,20 @@ int adc_scan_batch_launch(const void* codes, int code_bytes, int64_t n, int ldc,
   }
 }
 
+// pre: 16-byte row vectors held in registers (1, 2 or 4, rows on 16
+// bytes), or 0 (one load per code).
 int adc_scan_launch(const void* codes, int code_bytes, int64_t n, int ldc, int m,
-                    const void* lut, int k, int accumulate, void* out, void* stream) {
+                    const void* lut, int k, int accumulate, int pre, void* out,
+                    void* stream) {
+  if (pre && (reinterpret_cast<uintptr_t>(codes) % 16 ||
+              static_cast<int64_t>(ldc) * code_bytes % 16))
+    return cudaErrorMisalignedAddress;
   const auto s = static_cast<cudaStream_t>(stream);
   switch (code_bytes) {
-    case 1: return static_cast<int>(launch_query<uint8_t>(
-        codes, n, ldc, m, lut, k, accumulate, out, s));
-    case 4: return static_cast<int>(launch_query<int32_t>(
-        codes, n, ldc, m, lut, k, accumulate, out, s));
+    case 1: return static_cast<int>(launch_query_pre<uint8_t>(
+        pre, codes, n, ldc, m, lut, k, accumulate, out, s));
+    case 4: return static_cast<int>(launch_query_pre<int32_t>(
+        pre, codes, n, ldc, m, lut, k, accumulate, out, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -6,106 +6,118 @@
 // Bound on the H100: bytes. Per round it reads each query's (M, K) f32 LUT
 // (16 KB at M=16, K=256), R' ids and R' code rows of M bytes, and writes R'
 // floats; the adds are negligible. The TPU kernel kept the shard's codes
-// resident in VMEM; here the corpus codes stay uint8 in device memory and
-// only the gathered rows are read.
+// resident in VMEM; here the corpus codes stay in device memory and only the
+// gathered rows are read.
 //
-// Design: one block per query. The block stages the first m_eff rows of its
-// LUT in shared memory with coalesced 16-byte loads, then one thread per frontier
-// lane reads its row's codes and sums the m_eff shared-memory lookups in j
-// order (the order of the plain version). m_prefix is the loop bound
-// m_eff. An id outside [0, n_rows) is never read: its lane gets NaN (the
-// wrapper's asynchronous assert fails the stream on such ids).
+// Design: one thread per (query, frontier lane), kThreads to a block, so no
+// thread idles whatever R' is. A thread loads its id, then its code row into
+// registers (16-byte loads where every row starts on 16 bytes, else one load
+// per code), then reads the m_eff LUT entries its codes name straight from
+// global memory (L2, where a search's LUTs stay from round to round), and
+// sums them in j order from 0.f, the order of the plain version, so every
+// output equals it bit for bit (csrc/lut_rows.cuh). The critical path is
+// three dependent trips (id, row, LUT entries) and the launch. Staging each
+// query's whole LUT in shared memory instead, by cp.async under the id and
+// row trips, was slower on the H100 both L2-cold and L2-warm, and so was
+// prefetching it into L2 by one bulk copy per query: either moves all of the
+// LUT, 16 MB a round, while the random lookups touch ~87% of its 32-byte
+// sectors, and the bulk traffic queues the id and row loads behind it.
+// m_prefix is the loop bound m_eff. An id outside [0, n_rows) fails a
+// device-side assert (the next synchronization raises) and is never read;
+// built with NDEBUG, its lane would get NaN.
 //
 // Codes are uint8 (K <= 256) or int32 (any K, the reference's canonical
-// dtype for K > 256): one template, the code type of the row. A launch
-// covers the subspaces [j0, j0 + mc) of a row of ldc codes; the wrapper
-// splits [0, m_eff) into chunks whose (mc, K) f32 LUT slice fits in shared
-// memory (hop_adc.py) and launches once per chunk, each launch after the
-// first starting its sums from the partial sums in `out`, so the sum stays
-// one f32 chain in j order across chunk borders.
+// dtype for K > 256): one template, the code type of the row. One launch
+// covers the subspaces [0, m_eff) of rows of ldc codes, whatever the LUT's
+// size: nothing is staged, so the 200 KB subspace chunks of the
+// shared-memory kernels do not apply. The wrapper (hop_adc.py) picks how
+// many 16-byte vectors of a row a thread holds in registers (kPre: 1, 2 or
+// 4; 0 for rows off 16 bytes).
 
+#include <assert.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "lut_rows.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 
-// Copies a query's LUT slice into shared memory, 16 bytes per load when
-// the slice is 16-byte aligned (K % 4 == 0 and an aligned base), else one
-// float per load.
-__device__ __forceinline__ void stage_lut(const float* __restrict__ src, int n,
-                                          float* __restrict__ dst) {
-  if ((n & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    const float4* s4 = reinterpret_cast<const float4*>(src);
-    float4* d4 = reinterpret_cast<float4*>(dst);
-    for (int i = threadIdx.x; i < (n >> 2); i += blockDim.x) d4[i] = __ldg(s4 + i);
+template <typename CodeT, int kPre>  // kPre 0: one load per code
+__global__ void hop_adc_kernel(const CodeT* __restrict__ codes, int64_t n_rows, int ldc,
+                               const int32_t* __restrict__ ids, int q, int r,
+                               const float* __restrict__ luts, int64_t ldl, int k,
+                               int mc, float* __restrict__ out) {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= static_cast<int64_t>(q) * r) return;
+  const int64_t id = __ldg(ids + t);
+  const bool ok = id >= 0 && id < n_rows;
+  assert(ok && "hop_adc: id outside [0, n_rows)");
+  if (!ok) {
+    out[t] = __int_as_float(0x7fc00000);  // NaN
+    return;
+  }
+  const CodeT* row = codes + id * ldc;
+  const float* lut = luts + (t / r) * ldl;
+  if constexpr (kPre > 0) {
+    uint4 pre[kPre];
+    lut_rows::load_row(row, (mc * static_cast<int>(sizeof(CodeT)) + 15) / 16, pre);
+    out[t] = lut_rows::sum_row<CodeT, kPre>(0.f, pre, row, mc, lut, k);
   } else {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = __ldg(src + i);
+    out[t] = lut_rows::sum_row_scalar(0.f, row, mc, lut, k);
   }
 }
 
-template <typename CodeT>
-__global__ void hop_adc_kernel(const CodeT* __restrict__ codes,
-                               int64_t n_rows, int ldc,
-                               const int32_t* __restrict__ ids, int r,
-                               const float* __restrict__ luts, int64_t ldl,
-                               int k, int mc, bool accumulate,
-                               float* __restrict__ out) {
-  extern __shared__ float4 lut_raw[];  // (mc, k): this block's query, this chunk
-  float* lut_s = reinterpret_cast<float*>(lut_raw);
-  const int64_t q = blockIdx.x;
-  stage_lut(luts + q * ldl, mc * k, lut_s);
-  __syncthreads();
-
-  const int32_t* ids_q = ids + q * r;
-  float* out_q = out + q * r;
-  for (int i = threadIdx.x; i < r; i += blockDim.x) {
-    const int64_t row = ids_q[i];
-    if (row < 0 || row >= n_rows) {
-      out_q[i] = __int_as_float(0x7fc00000);  // NaN
-      continue;
-    }
-    const CodeT* c = codes + row * ldc;
-    float acc = accumulate ? out_q[i] : 0.f;
-    for (int j = 0; j < mc; ++j) acc += lut_s[j * k + static_cast<int>(c[j])];
-    out_q[i] = acc;
-  }
-}
-
-template <typename CodeT>
-cudaError_t launch(const void* codes, int64_t n_rows, int ldc, const void* ids,
-                   int q, int r, const void* luts, int64_t ldl, int k, int mc,
-                   int accumulate, void* out, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(mc) * k * sizeof(float);
-  if (smem > 48 * 1024) {  // beyond the default limit: opt in
-    cudaError_t err = cudaFuncSetAttribute(
-        hop_adc_kernel<CodeT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  hop_adc_kernel<CodeT><<<q, kThreads, smem, stream>>>(
-      static_cast<const CodeT*>(codes), n_rows, ldc,
-      static_cast<const int32_t*>(ids), r, static_cast<const float*>(luts),
-      ldl, k, mc, accumulate != 0, static_cast<float*>(out));
+template <typename CodeT, int kPre>
+cudaError_t launch(const void* codes, int64_t n_rows, int ldc, const void* ids, int q,
+                   int r, const void* luts, int64_t ldl, int k, int mc, void* out,
+                   cudaStream_t stream) {
+  const int64_t lanes = static_cast<int64_t>(q) * r;
+  const auto blocks = static_cast<unsigned>((lanes + kThreads - 1) / kThreads);
+  hop_adc_kernel<CodeT, kPre><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const CodeT*>(codes), n_rows, ldc, static_cast<const int32_t*>(ids), q, r,
+      static_cast<const float*>(luts), ldl, k, mc, static_cast<float*>(out));
   return cudaGetLastError();
+}
+
+template <typename CodeT>
+cudaError_t launch_pre(int pre, const void* codes, int64_t n_rows, int ldc,
+                       const void* ids, int q, int r, const void* luts, int64_t ldl,
+                       int k, int mc, void* out, cudaStream_t s) {
+  switch (pre) {
+    case 0: return launch<CodeT, 0>(codes, n_rows, ldc, ids, q, r, luts, ldl, k, mc,
+                                    out, s);
+    case 1: return launch<CodeT, 1>(codes, n_rows, ldc, ids, q, r, luts, ldl, k, mc,
+                                    out, s);
+    case 2: return launch<CodeT, 2>(codes, n_rows, ldc, ids, q, r, luts, ldl, k, mc,
+                                    out, s);
+    case 4: return launch<CodeT, 4>(codes, n_rows, ldc, ids, q, r, luts, ldl, k, mc,
+                                    out, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// codes: the row array offset to subspace j0 (uint8 when code_bytes == 1,
-// int32 when 4); luts: offset to row j0 of query 0's LUT, ldl floats apart.
+// codes: rows of ldc codes (uint8 when code_bytes == 1, int32 when 4), of
+// which the first mc are summed; luts: query 0's (M, K) LUT, the next
+// query's ldl floats on; pre: 16-byte row vectors a thread holds in
+// registers (1, 2 or 4, rows on 16 bytes), or 0 (one load per code).
 int hop_adc_launch(const void* codes, int code_bytes, int64_t n_rows, int ldc,
                    const void* ids, int q, int r, const void* luts, int64_t ldl,
-                   int k, int mc, int accumulate, void* out, void* stream) {
+                   int k, int mc, int pre, void* out, void* stream) {
+  if (pre && (reinterpret_cast<uintptr_t>(codes) % 16 ||
+              static_cast<int64_t>(ldc) * code_bytes % 16))
+    return cudaErrorMisalignedAddress;
   const auto s = static_cast<cudaStream_t>(stream);
   switch (code_bytes) {
-    case 1: return static_cast<int>(launch<uint8_t>(
-        codes, n_rows, ldc, ids, q, r, luts, ldl, k, mc, accumulate, out, s));
-    case 4: return static_cast<int>(launch<int32_t>(
-        codes, n_rows, ldc, ids, q, r, luts, ldl, k, mc, accumulate, out, s));
+    case 1: return static_cast<int>(launch_pre<uint8_t>(
+        pre, codes, n_rows, ldc, ids, q, r, luts, ldl, k, mc, out, s));
+    case 4: return static_cast<int>(launch_pre<int32_t>(
+        pre, codes, n_rows, ldc, ids, q, r, luts, ldl, k, mc, out, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

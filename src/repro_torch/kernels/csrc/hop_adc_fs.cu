@@ -25,8 +25,8 @@
 // waits on another. A nibble is then one shared byte load. Otherwise (other
 // R' such as the entry call's 1, other M, sliced tensors) a thread reads its
 // row and the LUT entries byte by byte from global memory. An id outside
-// [0, n_rows) is never read: its lane gets -1 (the wrapper's asynchronous
-// assert fails the stream on such ids).
+// [0, n_rows) fails a device-side assert (the next synchronization raises)
+// and is never read; built with NDEBUG, its lane would get -1.
 //
 // What is left is latency: the launch, then two dependent round trips (the
 // id, then the row) and the store. hop_adc_fs_empty_launch puts an empty
@@ -36,6 +36,7 @@
 // block behind a block barrier, warps that span queries (index arithmetic
 // before the loads), and blocks of 64 to 512 threads were all slower.
 
+#include <assert.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -64,6 +65,7 @@ __global__ void hop_adc_fs_warp_kernel(const uint8_t* __restrict__ codes,
   if (live) {
     const int64_t row = __ldg(ids + t);
     bad = row < 0 || row >= n_rows;
+    assert(!bad && "hop_adc_fs: id outside [0, n_rows)");
     if (!bad) c = __ldg(reinterpret_cast<const uint2*>(codes + row * 8));
   }
   if (lane < 16) ls[lane] = lv;
@@ -93,6 +95,7 @@ __global__ void hop_adc_fs_kernel(const uint8_t* __restrict__ codes,
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= static_cast<int64_t>(q) * r) return;
   const int64_t row = __ldg(ids + t);
+  assert(row >= 0 && row < n_rows && "hop_adc_fs: id outside [0, n_rows)");
   if (row < 0 || row >= n_rows) {
     out[t] = -1;
     return;

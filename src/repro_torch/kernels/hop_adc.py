@@ -1,11 +1,14 @@
 """Wrapper of the fused per-hop ADC kernel (``csrc/hop_adc.cu``).
 
 Replaces ``repro/kernels/hop_adc.py::hop_adc``, the Pallas kernel of every
-beam round, for uint8 codes and (K > 256) int32 codes; a LUT too large for
-shared memory goes in subspace chunks. It is bound by bytes: the per-query
-LUTs dominate a round's reads (16 MB at Q=1000, M=16, K=256). Design and
-bound are noted in the source. Callers go through :func:`repro_torch.kernels.ops.hop_adc`, which
-fixes the dtypes and sends CPU tensors to the plain version.
+beam round, for uint8 codes and (K > 256) int32 codes, in one launch whatever
+the LUT's size (the kernel stages nothing). It is bound by bytes: the
+per-query LUTs dominate a round's reads (16 MB at Q=1000, M=16, K=256).
+Design and bound are noted in the source. The 16-byte row vectors a thread holds in
+registers (a choice the one-query ``adc_scan`` kernel shares) are picked
+here, so the CPU tests can check the choice. Callers go through
+:func:`repro_torch.kernels.ops.hop_adc`, which fixes the dtypes and sends
+CPU tensors to the plain version.
 """
 
 from __future__ import annotations
@@ -20,10 +23,14 @@ from repro_torch.kernels import _build
 launches = 0       # uint8 codes
 launches_i32 = 0   # int32 codes (K > 256)
 
-# One launch's f32 LUT slice in shared memory: a query whose (M, K) LUT is
-# larger goes in chunks of subspaces (``subspace_chunks``).
+# One launch's f32 LUT slice, the shared-memory budget of the LUT-staging
+# kernels (``adc_scan``, ``adc_scan_batch``, ``hop_gather``): a query whose
+# (M, K) LUT is larger goes in chunks of subspaces (``subspace_chunks``).
 MAX_LUT_BYTES = 200 * 1024
 CODE_DTYPES = (torch.uint8, torch.int32)
+# 16-byte row vectors a thread may hold in registers (the kernels' template
+# instances: kPre of 1, 2 or 4).
+PREFETCH_VECTORS = (1, 2, 4)
 
 _fn = None
 
@@ -54,26 +61,43 @@ def subspace_chunks(m: int, k: int, max_bytes: int = MAX_LUT_BYTES
     return [(j0, min(m, j0 + per)) for j0 in range(0, m, per)]
 
 
+def row_vectors(ptr: int, ldc: int, j0: int, mc: int, size: int) -> int:
+    """16-byte loads that hold the codes [j0, j0 + mc) of a row, for rows of
+    ``ldc`` codes of ``size`` bytes from address ``ptr``; 0 unless every row
+    and the chunk's first code start on 16 bytes (the kernels then load code
+    by code). The last vector may pass ``j0 + mc`` but not the row's end."""
+    if ptr % 16 or ldc * size % 16 or j0 * size % 16:
+        return 0
+    return -(-mc * size // 16)
+
+
+def prefetch_vectors(nv: int) -> int:
+    """Of a row's ``nv`` 16-byte vectors, those a thread loads into
+    registers before it sums any: the smallest of ``PREFETCH_VECTORS`` that
+    covers them, at most 4 (the rest load during the sum); 0 for the
+    code-by-code path."""
+    return next((p for p in PREFETCH_VECTORS if p >= nv), 4) if nv else 0
+
+
 def launch(codes: torch.Tensor, ids: torch.Tensor, luts: torch.Tensor,
            m_eff: int, out: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel on checked tensors, one launch per subspace chunk
-    of the first ``m_eff``; no validation here."""
+    """Launch the kernel on checked tensors over the first ``m_eff``
+    subspaces; no validation here."""
     global launches, launches_i32
     q, r = ids.shape
     n_rows, m = codes.shape
     k = luts.shape[2]
     if q and r:
         size = codes.element_size()
-        for j0, j1 in subspace_chunks(m_eff, k):
-            err = _entry()(codes.data_ptr() + j0 * size, size, n_rows, m,
-                           ids.data_ptr(), q, r, luts.data_ptr() + j0 * k * 4,
-                           m * k, k, j1 - j0, int(j0 > 0), out.data_ptr(),
-                           _build.stream_handle(codes.device))
-            _build.check("hop_adc", err)
-            if codes.dtype == torch.int32:
-                launches_i32 += 1
-            else:
-                launches += 1
+        pre = prefetch_vectors(row_vectors(codes.data_ptr(), m, 0, m_eff, size))
+        err = _entry()(codes.data_ptr(), size, n_rows, m, ids.data_ptr(), q, r,
+                       luts.data_ptr(), m * k, k, m_eff, pre, out.data_ptr(),
+                       _build.stream_handle(codes.device))
+        _build.check("hop_adc", err)
+        if codes.dtype == torch.int32:
+            launches_i32 += 1
+        else:
+            launches += 1
     return out
 
 
@@ -82,9 +106,9 @@ def hop_adc(codes: torch.Tensor, ids: torch.Tensor, luts: torch.Tensor, *,
     """(N, M) uint8 or int32 codes, (Q, R′) int32 ids, (Q, M, K) f32 LUTs →
     (Q, R′) f32 on the card. Every id must be a row of ``codes`` — with the
     sentinel row appended by ``ops.pad_sentinel_row``, that is [0, N]; the
-    check is a device-side assert, not a Python exception. Codes must be
-    below K. ``0 < m_prefix < M`` sums the first ``m_prefix`` subspaces
-    only."""
+    kernel checks it with a device-side assert (the next synchronization
+    raises), not a Python exception. Codes must be below K. ``0 < m_prefix
+    < M`` sums the first ``m_prefix`` subspaces only."""
     for name, t, dtypes, ndim in (("codes", codes, CODE_DTYPES, 2),
                                   ("ids", ids, (torch.int32,), 2),
                                   ("luts", luts, (torch.float32,), 3)):
@@ -95,15 +119,10 @@ def hop_adc(codes: torch.Tensor, ids: torch.Tensor, luts: torch.Tensor, *,
                              f"{' or '.join(map(str, dtypes))} tensor, got "
                              f"{t.dtype} {tuple(t.shape)}")
     q, _ = ids.shape
-    n_rows, m = codes.shape
+    m = codes.shape[1]
     if luts.shape[:2] != (q, m):
         raise ValueError(f"hop_adc: luts {tuple(luts.shape)} do not match "
                          f"ids {tuple(ids.shape)} and codes {tuple(codes.shape)}")
-    if ids.numel():
-        # asynchronous, so a beam round pays no host sync for it: a bad id
-        # fails the next synchronization with a device-side assert
-        torch._assert_async(((ids >= 0) & (ids < n_rows)).all(),
-                            f"hop_adc: ids outside [0, {n_rows})")
     m_eff = m_prefix if 0 < m_prefix < m else m
     out = torch.empty(ids.shape, dtype=torch.float32, device=codes.device)
     return launch(codes, ids, luts, m_eff, out)

@@ -70,9 +70,10 @@ def hop_adc_fs(packed: torch.Tensor, ids: torch.Tensor, luts_u8: torch.Tensor,
                *, m_prefix: int = 0) -> torch.Tensor:
     """(N, ceil(M/2)) uint8 packed codes, (Q, R′) int32 ids, (Q, M, 16)
     uint8 LUTs → (Q, R′) int32 exact accumulators on the card. Every id
-    must be a row of ``packed`` (with the sentinel row, [0, N]); the check
-    is a device-side assert. ``0 < m_prefix < M`` sums the first
-    ``m_prefix`` sub-codes only (odd counts included)."""
+    must be a row of ``packed`` (with the sentinel row, [0, N]); the kernel
+    checks it with a device-side assert (the next synchronization raises).
+    ``0 < m_prefix < M`` sums the first ``m_prefix`` sub-codes only (odd
+    counts included)."""
     for name, t, dtype, ndim in (("packed", packed, torch.uint8, 2),
                                  ("ids", ids, torch.int32, 2),
                                  ("luts_u8", luts_u8, torch.uint8, 3)):
@@ -82,14 +83,11 @@ def hop_adc_fs(packed: torch.Tensor, ids: torch.Tensor, luts_u8: torch.Tensor,
             raise ValueError(f"hop_adc_fs: {name} must be a contiguous {ndim}-d "
                              f"{dtype} tensor, got {t.dtype} {tuple(t.shape)}")
     q, _ = ids.shape
-    n_rows, mb = packed.shape
+    mb = packed.shape[1]
     m = luts_u8.shape[1]
     if luts_u8.shape[0] != q or luts_u8.shape[2] != 16 or (m + 1) // 2 != mb:
         raise ValueError(f"hop_adc_fs: luts_u8 {tuple(luts_u8.shape)} do not match "
                          f"ids {tuple(ids.shape)} and packed {tuple(packed.shape)}")
-    if ids.numel():
-        torch._assert_async(((ids >= 0) & (ids < n_rows)).all(),
-                            f"hop_adc_fs: ids outside [0, {n_rows})")
     m_eff = m_prefix if 0 < m_prefix < m else m
     out = torch.empty(ids.shape, dtype=torch.int32, device=packed.device)
     return launch(packed, ids, luts_u8, m_eff, out)

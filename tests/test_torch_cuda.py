@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import adc_scan_fs as kadcfs
+from repro_torch.kernels import hop_adc
 from repro_torch.kernels import hop_adc_fs as khopfs
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
@@ -49,7 +50,87 @@ def test_hop_adc_kernel_matches_plain(dev, m_prefix):
     got = ops.hop_adc(codes, ids, luts, m_prefix=m_prefix)
     want = (ref.hop_adc_ref(codes[:, :m_prefix], ids, luts[:, :m_prefix])
             if m_prefix else ref.hop_adc_ref(codes, ids, luts))
-    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _hop_exact(dev, codes, ids, luts, m_prefix=0):
+    """ops.hop_adc on the card equals the plain version bit for bit."""
+    mp = m_prefix or codes.shape[1]
+    want = ref.hop_adc_ref(codes[:, :mp], ids, luts[:, :mp])
+    got = ops.hop_adc(codes, ids, luts, m_prefix=m_prefix)
+    assert got.shape == ids.shape
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _sentinel_ids(rng, n, q, r):
+    """(Q, R′) ids over n rows plus the sentinel n: duplicates, row 0 and
+    the sentinel row."""
+    ids = rng.integers(0, n + 1, (q, r)).astype(np.int32)
+    if r > 1:
+        ids[:, : r // 4] = ids[:, r // 4: 2 * (r // 4)]
+    ids[0, 0], ids[-1, -1] = 0, n
+    return ids
+
+
+@pytest.mark.parametrize("code_dtype,k", [(torch.uint8, 256), (torch.int32, 512)])
+@pytest.mark.parametrize("q", [1, 37, 1000])
+@pytest.mark.parametrize("r", [1, 31, 64, 200])
+def test_hop_adc_kernel_is_exact(dev, code_dtype, k, q, r):
+    """Both code types, every frontier width the beam and the seeding call
+    use and a ragged one, Q off every warp; with and without m_prefix."""
+    rng = np.random.default_rng(q * r + k)
+    n, m = 4099, 16
+    codes = ops.pad_sentinel_row(torch.from_numpy(rng.integers(0, k, (n, m))).to(code_dtype))
+    ids = torch.from_numpy(_sentinel_ids(rng, n, q, r))
+    luts = torch.from_numpy((rng.random((q, m, k)) * 4.0).astype(np.float32))
+    codes, ids, luts = codes.to(dev), ids.to(dev), luts.to(dev)
+    for mp in (0, 5):
+        _hop_exact(dev, codes, ids, luts, mp)
+
+
+@pytest.mark.parametrize("n", [1, 4099, 1_000_003])
+def test_hop_adc_kernel_corpus_sizes(dev, n):
+    rng = np.random.default_rng(n)
+    codes = torch.from_numpy(rng.integers(0, 256, (n, 16)).astype(np.uint8)).to(dev)
+    ids = torch.from_numpy(_sentinel_ids(rng, n, 37, 64)).to(dev)
+    luts = torch.rand((37, 16, 256), device=dev)
+    _hop_exact(dev, ops.pad_sentinel_row(codes), ids, luts)
+
+
+@pytest.mark.parametrize("code_dtype", [torch.uint8, torch.int32])
+def test_hop_adc_kernel_unaligned_rows(dev, code_dtype):
+    """Rows off 16 bytes take the code-by-code path, still exact: a view one
+    element into its buffer, and rows of 7 (uint8) or 5 (int32) codes."""
+    rng = np.random.default_rng(5)
+    n, q, r = 2999, 13, 64
+    ids = torch.from_numpy(_sentinel_ids(rng, n - 1, q, r)).to(dev)
+    for m in (16, 7 if code_dtype == torch.uint8 else 5):
+        codes = torch.from_numpy(rng.integers(0, 256, (n, m))).to(code_dtype).to(dev)
+        flat = torch.empty(codes.numel() + 1, dtype=code_dtype, device=dev)
+        flat[1:] = codes.reshape(-1)
+        luts = torch.rand((q, m, 256), device=dev)
+        for c in (flat[1:].view(codes.shape), codes):
+            if m == 16 and c is codes:
+                continue
+            assert c.is_contiguous()
+            assert hop_adc.row_vectors(c.data_ptr(), m, 0, m, c.element_size()) == 0
+            _hop_exact(dev, c, ids, luts)
+            _hop_exact(dev, c, ids, luts, 3)
+
+
+def test_redesigned_kernels_take_empty_inputs(dev):
+    """No query, no frontier lane, no code row: empty outputs, no launch."""
+    ops.reset_launch_counts()
+    for code_dtype, k in ((torch.uint8, 256), (torch.int32, 512)):
+        codes = torch.zeros((11, 16), dtype=code_dtype, device=dev)
+        for q, r in ((0, 64), (5, 0), (0, 0)):
+            ids = torch.zeros((q, r), dtype=torch.int32, device=dev)
+            got = ops.hop_adc(codes, ids, torch.rand((q, 16, k), device=dev))
+            assert got.shape == (q, r) and got.dtype == torch.float32
+        got = ops.adc_scan(codes[:0], torch.rand((16, k), device=dev))
+        assert got.shape == (0,) and got.dtype == torch.float32
+    torch.cuda.synchronize()
+    assert not any(ops.launch_counts().values()), ops.launch_counts()
 
 
 def test_hop_adc_kernel_rejects_out_of_range_ids(dev):
@@ -69,6 +150,25 @@ def test_hop_adc_kernel_rejects_out_of_range_ids(dev):
                          capture_output=True, text=True, timeout=300)
     assert "in-range ok" in out.stdout, out.stderr
     assert out.returncode != 0 and "device-side assert" in out.stderr, out.stderr
+
+
+def test_hop_adc_fs_kernel_rejects_out_of_range_ids(dev):
+    """The fs4 twin of the check above: the kernel's device-side assert, in
+    both of its paths (R′ a multiple of 32, and R′ = 1)."""
+    for r in (32, 1):
+        code = ("import sys; sys.path.insert(0, 'src'); import torch; "
+                "from repro_torch.kernels import hop_adc_fs as k; "
+                "packed = torch.zeros((11, 8), dtype=torch.uint8, device='cuda'); "
+                "luts = torch.ones((2, 16, 16), dtype=torch.uint8, device='cuda'); "
+                f"ids = torch.full((2, {r}), 10, dtype=torch.int32, device='cuda'); "
+                "k.hop_adc_fs(packed, ids, luts); torch.cuda.synchronize(); "
+                "print('in-range ok', flush=True); ids[1, 0] = -1; "
+                "k.hop_adc_fs(packed, ids, luts); torch.cuda.synchronize()")
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                             capture_output=True, text=True, timeout=300)
+        assert "in-range ok" in out.stdout, out.stderr
+        assert out.returncode != 0 and "device-side assert" in out.stderr, out.stderr
 
 
 @pytest.mark.parametrize("n", [1, 4099])
@@ -210,22 +310,38 @@ def test_adc_scan_kernel_matches_plain(dev, n, m, k):
     codes = torch.from_numpy(rng.integers(0, k, (n, m)).astype(np.uint8)).to(dev)
     lut = torch.from_numpy((rng.random((m, k)) * 4.0).astype(np.float32)).to(dev)
     got = ops.adc_scan(codes, lut)
-    torch.testing.assert_close(got, ref.adc_scan_ref(codes, lut), rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(got, ref.adc_scan_ref(codes, lut), rtol=0, atol=0)
     if n < 10**6:
         torch.testing.assert_close(got, ops.adc_scan_batch(codes, lut[None])[0],
-                                   rtol=1e-6, atol=1e-6)
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n,m", [(1_000_003, 16), (4099, 16), (3001, 7), (1, 16),
+                                 (2049, 8)])
+def test_adc_scan_int32_kernel_is_exact(dev, n, m):
+    """int32 codes at K=512: 16-byte row loads at M=16 and M=8, code by
+    code at M=7; ragged N and a single row."""
+    g = torch.Generator(device=dev).manual_seed(n + m)
+    codes = torch.randint(0, 512, (n, m), generator=g, device=dev, dtype=torch.int32)
+    lut = torch.rand((m, 512), generator=g, device=dev) * 4.0
+    ops.reset_launch_counts()
+    torch.testing.assert_close(ops.adc_scan(codes, lut), ref.adc_scan_ref(codes, lut),
+                               rtol=0, atol=0)
+    assert ops.launch_counts()["adc_scan_i32"] == 1
 
 
 def test_adc_scan_kernel_unaligned_rows(dev):
-    """Rows that do not start on 16 bytes take the byte-load path."""
+    """Rows that do not start on 16 bytes take the code-by-code path, still
+    exact: views one element into their buffers, uint8 and int32."""
     rng = np.random.default_rng(3)
-    codes = torch.from_numpy(rng.integers(0, 256, (999, 16)).astype(np.uint8)).to(dev)
-    flat = torch.empty(codes.numel() + 1, dtype=torch.uint8, device=dev)
-    flat[1:] = codes.reshape(-1)
-    view = flat[1:].view(codes.shape)
-    lut = torch.rand((16, 256), device=dev)
-    torch.testing.assert_close(ops.adc_scan(view, lut), ref.adc_scan_ref(view, lut),
-                               rtol=1e-6, atol=1e-6)
+    for dtype, k in ((torch.uint8, 256), (torch.int32, 512)):
+        codes = torch.from_numpy(rng.integers(0, k, (999, 16))).to(dtype).to(dev)
+        flat = torch.empty(codes.numel() + 1, dtype=dtype, device=dev)
+        flat[1:] = codes.reshape(-1)
+        view = flat[1:].view(codes.shape)
+        lut = torch.rand((16, k), device=dev)
+        torch.testing.assert_close(ops.adc_scan(view, lut), ref.adc_scan_ref(view, lut),
+                                   rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("q,r,m,k", [(1000, 64, 16, 256), (37, 200, 7, 256),
@@ -278,13 +394,13 @@ def test_int32_variants_match_plain(dev, n, m, k, q):
     torch.testing.assert_close(ops.adc_scan_batch(codes, luts),
                                ref.adc_scan_batch_ref(codes, luts), rtol=0, atol=0)
     torch.testing.assert_close(ops.adc_scan(codes, luts[0]),
-                               ref.adc_scan_ref(codes, luts[0]), rtol=1e-5, atol=1e-4)
+                               ref.adc_scan_ref(codes, luts[0]), rtol=0, atol=0)
     ids = torch.randint(0, n, (q, 64), device=dev, dtype=torch.int32)
     for mp in (0, max(1, m // 2 + 1)):
         want = (ref.hop_adc_ref(codes[:, :mp], ids, luts[:, :mp]) if mp
                 else ref.hop_adc_ref(codes, ids, luts))
         torch.testing.assert_close(ops.hop_adc(codes, ids, luts, m_prefix=mp), want,
-                                   rtol=1e-5, atol=1e-4)
+                                   rtol=0, atol=0)
     torch.testing.assert_close(ops.hop_gather(codes[ids.long()], luts),
                                ref.hop_gather_ref(codes[ids.long()], luts),
                                rtol=1e-5, atol=1e-4)
@@ -296,7 +412,8 @@ def test_int32_variants_match_plain(dev, n, m, k, q):
 @pytest.mark.parametrize("m,k", [(64, 1024), (208, 256)])
 def test_u8_chunked_kernels_match_plain(dev, m, k):
     """uint8 codes whose LUT passes 200 KB go in subspace chunks, each
-    launch continuing the sums: adc_scan_batch stays bit-exact."""
+    launch continuing the sums, in the kernels that stage the LUT; hop_adc
+    stages none and takes one launch: every kernel stays bit-exact."""
     codes, luts = _wide_inputs(dev, 2049, m, min(k, 256), 7, seed=m,
                                dtype=torch.uint8)
     luts = torch.rand((7, m, k), device=dev) * 4.0
@@ -307,7 +424,11 @@ def test_u8_chunked_kernels_match_plain(dev, m, k):
     ids = torch.randint(0, 2049, (7, 64), device=dev, dtype=torch.int32)
     torch.testing.assert_close(ops.hop_adc(codes, ids, luts, m_prefix=m - 3),
                                ref.hop_adc_ref(codes[:, :m - 3], ids, luts[:, :m - 3]),
-                               rtol=1e-5, atol=1e-4)
+                               rtol=0, atol=0)
+    _hop_exact(dev, codes, ids, luts)
+    assert ops.launch_counts()["hop_adc"] == 2  # one a call
+    torch.testing.assert_close(ops.adc_scan(codes, luts[0]),
+                               ref.adc_scan_ref(codes, luts[0]), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("m", [128, 201])

@@ -280,6 +280,71 @@ def test_adc_scan_batch_work_covers_each_output_once(n, q, tq, resident):
         assert (hits == 1).all()
 
 
+@pytest.mark.parametrize("m,k,size", [(16, 256, 1), (16, 512, 4), (208, 256, 1),
+                                      (64, 1024, 4), (7, 256, 1), (5, 512, 4),
+                                      (32, 256, 1), (8, 512, 4)])
+def test_row_vectors_only_on_aligned_rows_within_shared_memory(m, k, size):
+    """The 16-byte row path of adc_scan, per subspace chunk of M and of an
+    m_prefix, and of hop_adc over the whole m_prefix: taken exactly where
+    every row and the chunk's first code start on 16 bytes; its vectors
+    cover the chunk's codes and stay inside the row; the registers it
+    prefetches are a template instance (1, 2 or 4 vectors); each adc_scan
+    launch's LUT slice fits the shared memory a block may take."""
+    for base in (0, 1, 4, 8, 16, 4096):
+        for mm in (m, max(1, m // 3)):
+            for j0, j1 in t_hop.subspace_chunks(mm, k):
+                nv = t_hop.row_vectors(base, m, j0, j1 - j0, size)
+                aligned = base % 16 == 0 and m * size % 16 == 0 and j0 * size % 16 == 0
+                assert (nv > 0) == aligned, (base, mm, j0)
+                if nv:
+                    assert (nv - 1) * 16 < (j1 - j0) * size <= nv * 16
+                    assert j0 * size + nv * 16 <= m * size
+                pre = t_hop.prefetch_vectors(nv)
+                assert pre in (0, *t_hop.PREFETCH_VECTORS) and (pre == 0) == (nv == 0)
+                assert pre >= min(nv, 4)
+                assert (j1 - j0) * k * 4 <= 227 * 1024
+            nv = t_hop.row_vectors(base, m, 0, mm, size)  # hop_adc: one launch
+            assert (nv > 0) == (base % 16 == 0 and m * size % 16 == 0)
+            assert not nv or (nv - 1) * 16 < mm * size <= nv * 16 <= m * size
+    if (m, k, size) == (16, 256, 1):
+        assert t_hop.prefetch_vectors(t_hop.row_vectors(0, 16, 0, 16, 1)) == 1
+    if (m, k, size) == (16, 512, 4):
+        assert t_hop.prefetch_vectors(t_hop.row_vectors(0, 16, 0, 16, 4)) == 4
+
+
+@pytest.mark.parametrize("m,k,size,m_prefix", [
+    (16, 256, 1, 0), (16, 512, 4, 0), (16, 256, 1, 5), (208, 256, 1, 0),
+    (64, 1024, 4, 0), (64, 1024, 4, 61), (7, 256, 1, 0), (5, 512, 4, 3)])
+def test_hop_adc_launches_once_over_m_eff(monkeypatch, m, k, size, m_prefix):
+    """hop_adc stages no LUT, so one launch covers the first m_eff
+    subspaces whatever the LUT's size (past 200 KB too): the codes and LUTs
+    from their first entry, ldl = M·K, the 16-byte row path exactly where
+    rows start on 16 bytes."""
+    calls = []
+    monkeypatch.setattr(t_hop, "_entry", lambda: lambda *a: calls.append(a) or 0)
+    monkeypatch.setattr(t_hop._build, "stream_handle", lambda device: None)
+    q, r = 3, 5
+    dtype = torch.uint8 if size == 1 else torch.int32
+    codes = torch.zeros((11, m), dtype=dtype)
+    ids = torch.zeros((q, r), dtype=torch.int32)
+    luts = torch.zeros((q, m, k), dtype=torch.float32)
+    m_eff = m_prefix or m
+    before = (t_hop.launches, t_hop.launches_i32)
+    t_hop.launch(codes, ids, luts, m_eff, torch.empty((q, r)))
+    (c, cb, n_rows, ldc, i, qq, rr, lt, ldl, kk, mc, pre, _, _), = calls
+    assert (c, cb, n_rows, ldc, i, qq, rr) == (codes.data_ptr(), size, 11, m,
+                                               ids.data_ptr(), q, r)
+    assert (lt, ldl, kk, mc) == (luts.data_ptr(), m * k, k, m_eff)
+    aligned = codes.data_ptr() % 16 == 0 and m * size % 16 == 0
+    assert (pre > 0) == aligned and pre in (0, *t_hop.PREFETCH_VECTORS)
+    assert (t_hop.launches, t_hop.launches_i32) == (before[0] + (size == 1),
+                                                    before[1] + (size == 4))
+    t_hop.launches, t_hop.launches_i32 = before
+    calls.clear()
+    t_hop.launch(codes, ids[:0], luts[:0], m_eff, torch.empty((0, r)))
+    assert not calls
+
+
 def test_embedding_bag_yardsticks_equal_plain_versions():
     """The library column times one F.embedding_bag call per row; on CPU
     tensors each equals the kernel's plain version exactly."""
