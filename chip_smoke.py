@@ -93,8 +93,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    the memory run, ``--degrade-level 2``, ``--chaos io=0.05``) and
    ``sharded`` scenarios, and ``streaming`` (``--churn 0.1 --churn-rounds 4
    --refresh-every 2``: generation 0 is the 90k rows left by the hold-out,
-   two refreshed consolidations); each subprocess reports its kernel
-   launches;
+   two refreshed consolidations), then ``disk`` twice, plain and with
+   ``--chaos slow_read=2,corrupt_record,io=0.05`` (its ``[serve] disk:``
+   and ``[serve] disk io:`` lines parsed; no retries on the plain run); each
+   subprocess reports its kernel launches;
 12. stream (run after phase 10 and before phase 11's subprocesses, so that
    phase 5's tensors can go before them): ``index.StreamingEngine`` on
    phase 5's 1M base, R=64 graph, u8 codes and PQ model, a delta of 50,000
@@ -117,9 +119,31 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    distortion; (f) each consolidation's ``old2new`` maps exactly the live
    ids. Logs delete, insert, consolidation, refresh and restore seconds,
    the phase's kernel launches (the delta arm's CUDA-event timing calls
-   not counted) and its peak device memory.
+   not counted) and its peak device memory;
+13. disk (run after phase 12): ``storage.DiskEngine`` on phase 5's base,
+   R=64 graph, u8 codes and PQ model and phase 6's fs4 codes and model:
+   generation 0 of each layout written to a temporary directory and opened
+   from its quantizer sidecar (LUTs by ``pq_pairwise`` on the card) with a
+   32 MB hot-vertex cache and 4 reader threads; one serial search of the
+   1000 queries per layout (recall@10, QPS, rounds, hops, ``n_dist``, cache
+   hit rate, bytes read a query, I/O wait, kernel launches; the u8 one also
+   traced for the device's busy share); then the reference bench's serial
+   vs overlapped comparison on 200 queries (``benchmarks/disk_serving.py``:
+   a warm-up and the best of two runs per arm, read latency at 1.2x the
+   per-round compute clipped to [0.5, 20] ms, and at 0), its speedup
+   reported against the reference's 1.5x bar without failing on it. Checks:
+   (a) on 100 queries per layout, the card's serial search equals the CPU
+   route's (plain versions, the same LUTs on the CPU) bit for bit; (b) the
+   u8 recall within 0.01 of phase 5's ``InMemoryEngine`` (and the share of
+   queries with its top-10); (c) overlapped recall within 0.01 of serial;
+   (d) after tombstoning 1% of the ids (numpy seed 0), none is returned;
+   (e) ``max_rounds=5`` bounds rounds and flags ``truncated`` exactly where
+   the free search took more; (f) a corrupt generation 1 falls back to
+   generation 0, whose search it equals; (g) the sidecar route equals an
+   explicit ``lut_fn``; (h) ``pq_pairwise``, ``hop_adc`` and ``hop_adc_fs``
+   ran.
 
-Phases 5–12 each read every kernel's launch count around their own run.
+Phases 5–13 each read every kernel's launch count around their own run.
 The last three lines are the kernels JSON (each kernel's ``launches`` summed
 over those counted runs; the int32 variants are rows of their own), the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -2155,6 +2179,252 @@ def stream_path(ds, graph, u8_model, u8_codes, fs4_model, fs4_packed, work_dir: 
 
 
 # --------------------------------------------------------------------------
+# phase 13: the all-in-storage disk tier, on phase 5's base and graph
+# --------------------------------------------------------------------------
+
+DISK_CACHE_MB = 32.0       # ~117k records, 12% of the base (the bench: ~14%)
+DISK_IO_THREADS = 4
+DISK_CHECK_QUERIES = 100   # checks (a) and (d)-(g)
+DISK_OVERLAP_QUERIES = 200  # the serial-vs-overlapped comparison
+# benchmarks/disk_serving.py: modeled read latency at 1.2x the measured
+# per-round compute, clipped to [0.5, 20] ms; the reference's bar is 1.5x
+DISK_SLOW_MULT, DISK_SLOW_MS = 1.2, (0.5, 20.0)
+DISK_OVERLAP_BAR = 1.5
+
+
+def disk_search(eng, q, **kw):
+    """A ``DiskEngine`` search at k=10, h=32 between two device
+    synchronizations: (result, wall seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.search(q, k=10, h=32, **kw)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def same_search(a, b) -> bool:
+    """Two search results equal bit for bit: ids, dists and every counter
+    (``b`` may lie on another device)."""
+    import torch
+
+    return all(torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())
+               for f in ("ids", "dists", "hops", "rounds", "n_dist", "truncated"))
+
+
+def overlap_arm(eng, q, overlap: bool, timed_runs: int = 2) -> tuple:
+    """The bench's ``_timed``: one warm-up search, then ``timed_runs``;
+    (last result, QPS of the fastest run, ``last_io`` of that run)."""
+    disk_search(eng, q, overlap=overlap)
+    best = None
+    for _ in range(timed_runs):
+        res, wall = disk_search(eng, q, overlap=overlap)
+        if best is None or wall < best[0]:
+            best = (wall, dict(eng.last_io))
+    return res, q.shape[0] / best[0], best[1]
+
+
+def disk_path(ds, gt, graph, u8_model, u8_codes, fs4_model, fs4_packed, res_main,
+              inmem_recall: float, work_dir: str) -> dict:
+    """Phase 13: ``storage.DiskEngine`` at 1M. Generation 0 of each layout
+    written to ``work_dir``, opened from its quantizer sidecar with a 32 MB
+    hot-vertex cache and 4 reader threads; one serial search of the 1000
+    queries per layout (QPS, recall, rounds, hops, ``n_dist``, cache hit
+    rate, bytes read, I/O wait, launches; the u8 one traced for the busy
+    share); the reference bench's serial-vs-overlapped comparison on 200
+    queries, calibrated and at ``slow_read_ms=0``; checks (a)–(h) of the
+    module docstring (their searches run after the launch counts are read)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.index.segment import BaseSegment
+    from repro_torch.kernels import ops
+    from repro_torch.pq import base
+    from repro_torch.search.metrics import recall_at_k
+    from repro_torch.storage import DiskEngine, corrupt_header, segment_path, write_segment
+
+    times, checks = {}, {}
+    q = ds.queries
+    nq = q.shape[0]
+    qc = q[:DISK_CHECK_QUERIES]
+    layouts = {"u8": (u8_model, u8_codes), "fs4": (fs4_model, fs4_packed)}
+    ops.reset_launch_counts()
+    segs, engines, serial, results = {}, {}, {}, {}
+    for lay, (model, codes) in layouts.items():
+        seg = BaseSegment(graph=graph, codes=codes, vectors=None, layout=lay,
+                          dim_hint=ds.dim)
+        t0 = time.perf_counter()
+        path = write_segment(os.path.join(work_dir, lay), seg, model=model)
+        times[f"write_{lay}"] = time.perf_counter() - t0
+        mb = os.path.getsize(path) / 1e6
+        t0 = time.perf_counter()
+        eng = DiskEngine.open(os.path.join(work_dir, lay), lut_fn=None,
+                              cache_mb=DISK_CACHE_MB, io_threads=DISK_IO_THREADS,
+                              device=q.device)
+        times[f"open_{lay}"] = time.perf_counter() - t0
+        log(f"[disk] {lay}: generation 0 written in {times[f'write_{lay}']:.2f} s, "
+            f"{mb:.1f} MB ({eng.n} records of {eng.header.record_bytes} B); opened from "
+            f"the sidecar in {times[f'open_{lay}']:.2f} s, cache {len(eng.cache)}/"
+            f"{eng.cache.capacity} records ({eng.cache.stats()['pinned']} BFS-pinned), "
+            f"{DISK_IO_THREADS} reader threads")
+        segs[lay], engines[lay] = (seg, model), eng
+        before = ops.launch_counts()
+        res, wall = disk_search(eng, q, overlap=False)
+        io = dict(eng.last_io)
+        launched = {k: v - before[k] for k, v in ops.launch_counts().items() if v > before[k]}
+        row = {"qps": nq / wall, "wall_s": wall, "recall": recall_at_k(res.ids, gt, 10),
+               "rounds": float(res.rounds.float().mean()),
+               "hops": float(res.hops.float().mean()),
+               "n_dist": float(res.n_dist.float().mean()),
+               "cache_hit_rate": io["cache_hit_rate"],
+               "bytes_read_per_query": io["bytes_read"] / nq,
+               "io_wait_s": io["io_wait_s"], "n_reads": io["n_reads"],
+               "rounds_total": io["rounds_total"], "launches": launched}
+        log(f"[disk] {lay} serial, {nq} queries at h=32: recall@10 {row['recall']:.4f}, "
+            f"{row['qps']:.1f} QPS ({wall:.2f} s), mean rounds {row['rounds']:.2f} hops "
+            f"{row['hops']:.2f} n_dist {row['n_dist']:.2f}; cache hit rate "
+            f"{row['cache_hit_rate']:.3f}, {row['bytes_read_per_query']:.0f} B read a query "
+            f"({io['n_reads']} reads), io_wait {io['io_wait_s'] * 1e3:.1f} ms; "
+            f"kernels {launched}")
+        check(res.ids.shape == (nq, 10) and res.ids.device == q.device,
+              f"{lay}: disk result shape or device")
+        check(bool(torch.isfinite(res.dists).all()), f"{lay}: disk distances not finite")
+        if lay == "u8":
+            row["busy"] = device_busy(lambda: eng.search(q, k=10, h=32, overlap=False),
+                                      wall, "u8 DiskEngine")
+            if row["busy"]["busy_share"] is not None:
+                log(f"[disk] u8 serial search: device busy share "
+                    f"{row['busy']['busy_share']:.6f}")
+        serial[lay], results[lay] = row, res
+
+    # ---- the reference bench's overlap comparison (u8, 200 queries) ----
+    eng = engines["u8"]
+    qo, gto = q[:DISK_OVERLAP_QUERIES], gt[:DISK_OVERLAP_QUERIES]
+    overlap = {}
+    for slow in ("real", "calibrated"):
+        if slow == "calibrated":
+            eng.reader.slow_read_ms = float(np.clip(
+                DISK_SLOW_MULT * overlap["real"]["compute_ms_per_round"], *DISK_SLOW_MS))
+        arms = {}
+        for mode in ("serial", "overlapped"):
+            res, qps, io = overlap_arm(eng, qo, mode == "overlapped")
+            arms[mode] = {"qps": qps, "recall": recall_at_k(res.ids, gto, 10),
+                          "io_wait_s": io["io_wait_s"], "rounds_total": io["rounds_total"],
+                          "compute_ms_per_round": (io["wall_s"] - io["io_wait_s"]) * 1e3
+                          / max(io["rounds_total"], 1)}
+        row = {"slow_read_ms": eng.reader.slow_read_ms,
+               "speedup": arms["overlapped"]["qps"] / arms["serial"]["qps"],
+               "compute_ms_per_round": max(a["compute_ms_per_round"] for a in arms.values()),
+               **arms}
+        overlap[slow] = row
+        log(f"[disk] overlap ({slow} reads, slow_read_ms {row['slow_read_ms']:.2f}, "
+            f"{DISK_OVERLAP_QUERIES} queries, best of 2 after a warm-up): serial "
+            f"{arms['serial']['qps']:.1f} QPS recall {arms['serial']['recall']:.4f}, "
+            f"overlapped {arms['overlapped']['qps']:.1f} QPS recall "
+            f"{arms['overlapped']['recall']:.4f}; speedup {row['speedup']:.4f} (the "
+            f"reference's bar {DISK_OVERLAP_BAR}: "
+            f"{'met' if row['speedup'] >= DISK_OVERLAP_BAR else 'missed'}); compute "
+            f"{row['compute_ms_per_round']:.2f} ms a round")
+        # (c) the bench's correctness invariant
+        ok = abs(arms["overlapped"]["recall"] - arms["serial"]["recall"]) <= 0.01
+        checks[f"c_overlap_recall_{slow}"] = ok
+        check(ok, f"(c) overlapped recall differs from serial by more than 0.01 ({slow})")
+    eng.reader.slow_read_ms = 0.0
+    counts = ops.launch_counts()
+
+    # ---- checks: their searches come after the counts are read ----
+    # (a) the card's serial search equals the CPU route's bit for bit: the
+    # same LUTs (the sidecar's, built on the card) moved to the CPU; the CPU
+    # engine's cache is left empty, which changes what is read, not a result
+    card_res = {}
+    for lay, eng in engines.items():
+        luts = eng.lut_fn(qc)
+        host_luts = luts.to("cpu")
+        with DiskEngine.open(os.path.join(work_dir, lay), lut_fn=lambda _q: host_luts,
+                             cache_records=0, io_threads=DISK_IO_THREADS,
+                             device="cpu") as cpu_eng:
+            host = cpu_eng.search(qc.cpu(), k=10, h=32, overlap=False)
+        saved, eng.lut_fn = eng.lut_fn, lambda _q: luts
+        card = card_res[lay] = eng.search(qc, k=10, h=32, overlap=False)
+        checks[f"a_card_equals_cpu_{lay}"] = same_search(card, host)
+        check(checks[f"a_card_equals_cpu_{lay}"],
+              f"(a) {lay}: the card's search differs from the CPU route's")
+        # (g) the sidecar route (``card``) equals an explicit lut_fn
+        model = segs[lay][1]
+        eng.lut_fn = lambda qq: base.build_lut(model, qq, quantize=lay == "fs4")
+        explicit = eng.search(qc, k=10, h=32, overlap=False)
+        eng.lut_fn = saved
+        checks[f"g_sidecar_equals_explicit_{lay}"] = same_search(card, explicit)
+        check(checks[f"g_sidecar_equals_explicit_{lay}"],
+              f"(g) {lay}: the sidecar route differs from an explicit lut_fn")
+    log(f"[disk] (a) the card's serial search equals the CPU route's bit for bit on "
+        f"{DISK_CHECK_QUERIES} queries (u8, fs4); (g) the sidecar route equals an "
+        f"explicit lut_fn")
+    # (b) within a point of InMemoryEngine on the same graph, codes, queries
+    rec = serial["u8"]["recall"]
+    a, b = results["u8"].ids, res_main.ids[:, :10]
+    same_ordered = float((a == b).all(dim=1).float().mean())
+    same_set = float((a.sort(dim=1).values == b.sort(dim=1).values).all(dim=1)
+                     .float().mean())
+    checks["b_recall_within_0.01_of_inmemory"] = abs(rec - inmem_recall) <= 0.01
+    log(f"[disk] (b) u8 recall@10 {rec:.4f} against InMemoryEngine's {inmem_recall:.4f}; "
+        f"top-10 ids equal to InMemoryEngine's on {same_ordered:.4f} of queries in order, "
+        f"{same_set:.4f} as sets")
+    check(checks["b_recall_within_0.01_of_inmemory"],
+          "(b) the disk search's recall is not within 0.01 of InMemoryEngine's")
+    eng = engines["u8"]
+    # (e) max_rounds=5: rounds bound, truncated exactly where work was left
+    free = card_res["u8"]
+    capped = eng.search(qc, k=10, h=32, overlap=False, max_rounds=5)
+    left = free.rounds > 5
+    done = ~capped.truncated
+    checks["e_budget"] = bool((capped.rounds <= 5).all()
+                              and torch.equal(capped.truncated, left)
+                              and torch.equal(capped.ids[done], free.ids[done]))
+    log(f"[disk] (e) max_rounds=5: rounds <= 5, truncated on {int(left.sum())} of "
+        f"{DISK_CHECK_QUERIES} queries, exactly those whose free search took more; "
+        f"the rest equal the free search")
+    check(checks["e_budget"], "(e) max_rounds=5 does not bind or flag honestly")
+    # (d) 1% of the ids tombstoned: none returned
+    dead = np.random.default_rng(0).choice(eng.n, eng.n // 100, replace=False)
+    eng.delete(dead)
+    ids = eng.search(qc, k=10, h=32, overlap=False).ids.cpu().numpy()
+    eng.tombstones = None
+    checks["d_tombstones"] = not np.isin(ids, dead).any() and bool((ids >= 0).any(axis=1).all())
+    log(f"[disk] (d) {dead.size} ids tombstoned (numpy seed 0): none returned")
+    check(checks["d_tombstones"], "(d) a tombstoned id was returned")
+    # (f) a corrupt generation 1 falls back to generation 0
+    seg, model = segs["u8"]
+    d = os.path.join(work_dir, "u8")
+    write_segment(d, dataclasses.replace(seg, generation=1), model=model)
+    corrupt_header(segment_path(d, 1), seed=0)
+    falls = []
+    with DiskEngine.open(d, lut_fn=None, cache_mb=DISK_CACHE_MB,
+                         io_threads=DISK_IO_THREADS, device=q.device,
+                         on_fallback=lambda g, e: falls.append(g)) as back:
+        fell = back.generation == 0 and falls == [1]
+        checks["f_fallback"] = fell and same_search(
+            back.search(qc, k=10, h=32, overlap=False), free)
+    log(f"[disk] (f) generation 1 corrupted: open fell back past {falls} to generation 0, "
+        f"search equal to generation 0's: {checks['f_fallback']}")
+    check(checks["f_fallback"], "(f) the corrupt-generation fallback failed")
+    for eng in engines.values():
+        eng.close()
+    # (h) the phase ran its kernels
+    for name in ("pq_pairwise", "hop_adc", "hop_adc_fs"):
+        check(counts[name] > 0, f"(h) kernel {name} was not launched by the disk phase")
+    checks["h_kernels"] = True
+    log(f"[disk] launches: { {k: v for k, v in counts.items() if v} }; checks {checks}")
+    return dict(serial=serial, overlap=overlap, checks=checks, times=times, launches=counts,
+                cache_mb=DISK_CACHE_MB, check_queries=DISK_CHECK_QUERIES,
+                overlap_queries=DISK_OVERLAP_QUERIES,
+                same_top10_inmemory={"ordered": same_ordered, "set": same_set})
+
+
+# --------------------------------------------------------------------------
 # phase 11: the train -> checkpoint -> serve command lines
 # --------------------------------------------------------------------------
 
@@ -2177,6 +2447,11 @@ STREAM_LINE = re.compile(
     r"^\[serve\] streaming/(?P<tag>\w+): recall@10=(?P<recall>[\d.]+) qps=(?P<qps>[\d.]+) "
     r"live=(?P<live>\d+) gen=(?P<gen>\d+) resident=(?P<resident_mb>[\d.]+)MB "
     r"truncated=(?P<truncated>[\d.]+)$", re.M)
+DISK_IO_LINE = re.compile(
+    r"^\[serve\] disk io: cache_hit_rate=(?P<cache_hit_rate>[\d.]+) "
+    r"bytes_read=(?P<bytes_read>\d+) n_reads=(?P<n_reads>\d+) "
+    r"io_wait=(?P<io_wait_ms>[\d.]+)ms retries=(?P<retries>\d+)$", re.M)
+DISK_CHAOS = "slow_read=2,corrupt_record,io=0.05"
 CLI_WIDTHS = ["--graph-r", "64", "--graph-l", "128"]
 TRAIN_ARGS = ["--dataset", "sift", "--m", "16", "--k", "256", *CLI_WIDTHS,
               "--steps", "200", "--checkpoint-every", "50", "--fail-at-step", "120"]
@@ -2244,6 +2519,20 @@ def cli_path() -> dict:
                           "--refresh-every", "2"], 600)
         add(counts)
         serve["streaming"] = parse_streaming(out)
+        disk_args = serve_args + ["--scenario", "disk"]
+        out, counts, walls["serve_disk"] = run_cli(
+            "serve disk", "repro_torch.launch.serve", disk_args, 600)
+        add(counts)
+        serve["disk"] = parse_disk(out)
+        check(serve["disk"]["retries"] == 0, "serve disk: retries without injected faults")
+        out, counts, walls["serve_disk_chaos"] = run_cli(
+            "serve disk chaos", "repro_torch.launch.serve",
+            disk_args + ["--chaos", DISK_CHAOS], 600)
+        add(counts)
+        serve["disk_chaos"] = parse_disk(out)
+        for line in ("[serve] chaos: silently corrupted record",
+                     "[serve] chaos: transient read fault p=0.05 injected on segment reads"):
+            check(line in out, f"serve disk chaos: no '{line}' line")
     for name in ("pq_pairwise", "hop_adc", "adc_scan_batch"):
         check(launches.get(name, 0) > 0, f"kernel {name} was not launched by the CLIs")
     from repro_torch.kernels import ops
@@ -2269,6 +2558,17 @@ def parse_streaming(out: str) -> dict:
         check(math.isfinite(row["recall"]) and row["qps"] > 0,
               f"serve streaming/{tag}: recall or qps not finite")
     return rows
+
+
+def parse_disk(out: str) -> dict:
+    """The disk scenario's ``[serve] disk:`` result line and its ``[serve]
+    disk io:`` line."""
+    row = parse_serve(out, "disk")
+    found = [m.groupdict() for m in DISK_IO_LINE.finditer(out)]
+    check(len(found) == 1, "serve disk: no parseable [serve] disk io line")
+    row.update({k: float(v) for k, v in found[0].items()})
+    check(row["n_reads"] > 0 and row["bytes_read"] > 0, "serve disk: no record was read")
+    return row
 
 
 def parse_serve(out: str, scenario: str) -> dict:
@@ -2371,6 +2671,11 @@ def main() -> int:
         phases["stream"] = stream_path(ds, graph, pq_model, pq_codes, fs4_model,
                                        fs4_packed, d)
     log(f"[stream] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="rpq_disk_") as d:
+        phases["disk"] = disk_path(ds, gt, graph, pq_model, pq_codes, fs4_model, fs4_packed,
+                                   res_main, result["recall"]["inmemory"], d)
+    log(f"[disk] done in {time.perf_counter() - t0:.1f} s")
     del ds, gt, graph, pq_codes, fs4_packed, res_main
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

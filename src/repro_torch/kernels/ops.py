@@ -193,6 +193,27 @@ def adc_scan_fs(packed: torch.Tensor, luts_u8: torch.Tensor,
     return _dequant(acc, scale, bias, luts_u8.shape[1])
 
 
+def hop_adc_fs_acc(packed: torch.Tensor, ids: torch.Tensor, luts_u8: torch.Tensor,
+                   *, m_prefix: int = 0) -> torch.Tensor:
+    """FUSED per-hop FAST-SCAN accumulators: (N, ceil(M/2)) packed codes,
+    (Q, R′) ids, (Q, M, 16) uint8 LUTs → (Q, R′) int32 exact sums, before
+    any dequant. ``0 < m_prefix < M`` sums only the first m_prefix
+    sub-codes (odd counts exact on both routes: the plain version's paired
+    table zero-pads the dangling high nibble).
+
+    For callers that dequantize on their own terms: the disk tier undoes a
+    prefix sum with the FULL ``M · bias``, as the reference's
+    ``storage/engine.py`` does, where :func:`hop_adc_fs` uses
+    ``m_prefix · bias``."""
+    packed, ids, luts_u8 = _codes_u8(packed), _ids_i32(ids), _codes_u8(luts_u8)
+    m = luts_u8.shape[1]
+    mp = m_prefix if 0 < m_prefix < m else 0
+    if packed.is_cuda:
+        return _hopfs.hop_adc_fs(packed, ids, luts_u8, m_prefix=mp)
+    m_eff = mp or m
+    return _ref.hop_adc_fs_acc(packed[:, :(m_eff + 1) // 2], ids, luts_u8[:, :m_eff])
+
+
 def hop_adc_fs(packed: torch.Tensor, ids: torch.Tensor, luts_u8: torch.Tensor,
                scale: torch.Tensor, bias: torch.Tensor, *,
                m_prefix: int = 0) -> torch.Tensor:
@@ -203,16 +224,10 @@ def hop_adc_fs(packed: torch.Tensor, ids: torch.Tensor, luts_u8: torch.Tensor,
     ``0 < m_prefix < M`` sums only the first m_prefix sub-codes and
     dequantizes with ``m_prefix · bias``; an odd m_prefix is exact on the
     plain path too (the paired table zero-pads the dangling high nibble)."""
-    packed, ids, luts_u8 = _codes_u8(packed), _ids_i32(ids), _codes_u8(luts_u8)
     m = luts_u8.shape[1]
     mp = m_prefix if 0 < m_prefix < m else 0
-    m_eff = mp or m
-    if packed.is_cuda:
-        acc = _hopfs.hop_adc_fs(packed, ids, luts_u8, m_prefix=mp)
-    else:
-        acc = _ref.hop_adc_fs_acc(packed[:, :(m_eff + 1) // 2], ids,
-                                  luts_u8[:, :m_eff])
-    return _dequant(acc, scale, bias, m_eff)
+    acc = hop_adc_fs_acc(packed, ids, luts_u8, m_prefix=mp)
+    return _dequant(acc, scale, bias, mp or m)
 
 
 def reset_launch_counts() -> None:

@@ -5,7 +5,7 @@
         [--codes u8|fs4] [--h 32] [--entries 8] [--prune-eps 0.1] \
         [--deadline-ms 20] [--degrade-level 2] [--chaos io=0.05] \
         [--churn 0.1] [--churn-rounds 4] [--refresh-every 2] \
-        [--port-stdin] [--device cpu]
+        [--cache-mb 4] [--io-threads 4] [--port-stdin] [--device cpu]
 
 Port of ``repro/launch/serve.py``; ``--device`` (default ``cuda``; without
 CUDA the driver raises unless given ``--device cpu``) is the port's own.
@@ -27,9 +27,16 @@ mutable index, scored against the LIVE corpus, and a consolidation folds the
 delta into the next generation, snapshotted next to the checkpoint;
 ``--refresh-every N`` retrains the quantizer on the live graph every N
 rounds and at the final consolidation; ``--chaos crash=consolidate`` /
-``corrupt`` drill a crash mid-consolidation and the restore).
-``sharded-graph`` and ``disk`` are not ported yet and exit with the queue
-item that holds them.
+``corrupt`` drill a crash mid-consolidation and the restore) and ``disk``
+(the all-in-storage tier, ``storage.DiskEngine``: the graph and codes are
+written to a segment file under ``<ckpt-dir>/storage`` and every beam
+round reads its records from it through a hot-vertex cache of
+``--cache-mb`` and ``--io-threads`` reader threads; ``--chaos
+slow_read=ms,corrupt_record,io=p`` adds read latency, a silently flipped
+record byte and retried transient read faults; a second ``[serve] disk
+io:`` line reports the cache hit rate, bytes read, reads, I/O wait and
+retries). ``sharded-graph`` is not ported yet and exits with the queue
+item that holds it.
 
 ``--entries S`` / ``--prune-eps ε`` switch on adaptive routing (DESIGN.md
 §11); ``--deadline-ms`` becomes a ``max_rounds`` budget through
@@ -40,6 +47,7 @@ ladder (``search/degrade.py``) on top of the flags.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 from typing import Optional
@@ -64,8 +72,7 @@ from repro_torch.search.metrics import live_ground_truth, measure_qps, recall_at
 
 SCENARIOS = ("hybrid", "memory", "sharded", "sharded-graph", "streaming", "disk")
 # scenarios of the reference that wait for later slices (ROADMAP.md queue A)
-NOT_PORTED = {"sharded-graph": "queue A item 14 (sharded engines)",
-              "disk": "queue A item 13 (disk tier)"}
+NOT_PORTED = {"sharded-graph": "queue A item 14 (sharded engines)"}
 
 
 def _sync(device: torch.device) -> None:
@@ -103,7 +110,8 @@ def restore_model(ckpt_dir: str, dataset: str, device,
     return state["step"], ds, to_model(Q.RPQConfig(dim=ds.dim, m=m, k=k), params), (m, k)
 
 
-def build_engine(args, ds, model):
+def build_engine(args, ds, model, plan: Optional[ChaosPlan] = None,
+                 retry: Optional[RetryPolicy] = None):
     """The scenario's engine over the base set, in the ``--codes`` layout."""
     codes = pqbase.encode(model, ds.base)
     if args.codes == "fs4":
@@ -123,9 +131,50 @@ def build_engine(args, ds, model):
     graph = build_or_load_graph(torch.Generator().manual_seed(0), ds.base,
                                 f"{args.ckpt_dir}/graph_base.npz",
                                 args.graph_r, args.graph_l)
+    if args.scenario == "disk":
+        return build_disk_engine(args, ds, model, graph, codes, lut_fn, plan, retry)
     if args.scenario == "hybrid":
         return HybridEngine(graph, codes, lut_fn, vectors=ds.base, device=dev)
     return InMemoryEngine(graph, codes, lut_fn, device=dev)
+
+
+def build_disk_engine(args, ds, model, graph, codes, lut_fn,
+                      plan: Optional[ChaosPlan], retry: Optional[RetryPolicy]):
+    """The all-in-storage tier (DESIGN.md §14): write the base as generation
+    0 of a segment file under ``<ckpt-dir>/storage`` (vector-free, with the
+    quantizer sidecar), apply the chaos plan's storage tokens, and open a
+    ``DiskEngine`` on it."""
+    from repro_torch.index.segment import BaseSegment
+    from repro_torch.storage import DiskEngine, write_segment
+    from repro_torch.storage import format as segfmt
+
+    storage_dir = f"{args.ckpt_dir}/storage"
+    seg = BaseSegment(graph=graph, codes=codes, vectors=None, layout=args.codes,
+                      generation=0, dim_hint=ds.dim)
+    seg_path = write_segment(storage_dir, seg, model=model)
+    fault_hook, slow_ms = None, 0.0
+    if plan is not None:
+        slow_ms = plan.slow_read_ms
+        if plan.io_fault_p > 0:
+            fault_hook = plan.io_fault()
+            retry = retry or RetryPolicy()
+            print(f"[serve] chaos: transient read fault p={plan.io_fault_p} "
+                  f"injected on segment reads")
+        if plan.corrupt_record:
+            vid = segfmt.corrupt_record(seg_path, seed=plan.seed)
+            print(f"[serve] chaos: silently corrupted record {vid} in {seg_path}")
+    engine = DiskEngine.open(
+        storage_dir, lut_fn=lut_fn, cache_mb=args.cache_mb,
+        io_threads=args.io_threads, retry=retry, fault_hook=fault_hook,
+        slow_read_ms=slow_ms, device=ds.base.device,
+        on_fallback=lambda g, e: print(
+            f"[serve] disk: generation {g} failed header verification "
+            f"({e}) — falling back"))
+    print(f"[serve] disk: gen {engine.generation} segment "
+          f"{os.path.getsize(engine.path)/1e6:.1f}MB on storage, "
+          f"cache {len(engine.cache)}/{engine.cache.capacity} records "
+          f"({args.cache_mb}MB budget), {args.io_threads} io threads")
+    return engine
 
 
 def run_streaming(args, model, ds, plan: Optional[ChaosPlan] = None) -> dict:
@@ -315,7 +364,7 @@ def run(args) -> dict:
                 "--port-stdin is not available with --scenario streaming: "
                 "the scenario runs a fixed churn loop, not a query port")
         return run_streaming(args, model, ds, plan)
-    engine = build_engine(args, ds, model)
+    engine = build_engine(args, ds, model, plan, retry)
     if args.port_stdin:
         serve_stdin(args, engine, ds.dim, dev)
         return {"engine": engine}
@@ -343,6 +392,11 @@ def run(args) -> dict:
           f"rounds={float(res.rounds.float().mean()):.1f} "
           f"truncated={float(res.truncated.float().mean()):.2f} {degr}"
           f"resident={engine.memory_bytes()/1e6:.1f}MB")
+    if args.scenario == "disk":
+        io = engine.last_io
+        print(f"[serve] disk io: cache_hit_rate={io['cache_hit_rate']:.3f} "
+              f"bytes_read={io['bytes_read']} n_reads={io['n_reads']} "
+              f"io_wait={io['io_wait_s']*1e3:.1f}ms retries={io['n_retries']}")
     return {"engine": engine, "search_kwargs": skw, "result": res, "recall": rec,
             "qps": qps}
 
@@ -395,7 +449,14 @@ def parser() -> argparse.ArgumentParser:
                     "'io=0.05,dead=0,corrupt,crash=consolidate,seed=7': "
                     "transient checkpoint-read faults (retried), dead shards "
                     "dropped from the merge, a corrupted newest snapshot and "
-                    "a crash mid-consolidation (streaming)")
+                    "a crash mid-consolidation (streaming); disk: "
+                    "'slow_read=ms,corrupt_record' (modeled read latency, a "
+                    "silently flipped record byte)")
+    ap.add_argument("--cache-mb", type=float, default=4.0,
+                    help="disk scenario: DRAM budget of the hot-vertex cache "
+                    "(half BFS-pinned from the medoid, half LRU)")
+    ap.add_argument("--io-threads", type=int, default=4,
+                    help="disk scenario: segment reader threads")
     ap.add_argument("--port-stdin", action="store_true",
                     help="read whitespace-separated query vectors on stdin")
     ap.add_argument("--device", default="cuda",

@@ -16,12 +16,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.graphs.adjacency import Graph
+from repro_torch.index.segment import BaseSegment
 from repro_torch.kernels import adc_scan_fs as kadcfs
 from repro_torch.kernels import hop_adc
 from repro_torch.kernels import hop_adc_fs as khopfs
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 from repro_torch.pq import pack
+from repro_torch.pq.pack import QuantizedLUT
+from repro_torch.storage import DiskEngine, write_segment
 
 pytestmark = pytest.mark.cuda
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -441,3 +445,74 @@ def test_adc_scan_fs_chunked_is_exact(dev, m):
     assert len(kadcfs.byte_chunks(packed.shape[1])) >= 2
     torch.testing.assert_close(kadcfs.adc_scan_fs(packed, luts),
                                ref.adc_scan_fs_acc(packed, luts), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("r", [1, 64, 200])
+@pytest.mark.parametrize("m,m_prefix", [(16, 0), (16, 5), (7, 3), (8, 1)])
+def test_hop_adc_fs_acc_matches_plain(dev, r, m, m_prefix):
+    """``ops.hop_adc_fs_acc`` (the disk tier's fs4 route, int32 sums before
+    any dequant) on the card equals its CPU route bit for bit: odd M and odd
+    prefixes, ragged lanes padded with the sentinel row, one launch."""
+    n, q = 3001, 29
+    packed, luts, rng = _fs_inputs(dev, n, m, q, seed=3 * r + m + m_prefix)
+    ids = np.full((q, r), n, np.int32)
+    for i, used in enumerate(rng.integers(0, r + 1, q)):
+        ids[i, :used] = rng.integers(0, n, used)
+    ids = torch.from_numpy(ids).to(dev)
+    ops.reset_launch_counts()
+    got = ops.hop_adc_fs_acc(packed, ids, luts, m_prefix=m_prefix)
+    assert ops.launch_counts()["hop_adc_fs"] == 1
+    want = ops.hop_adc_fs_acc(packed.cpu(), ids.cpu(), luts.cpu(), m_prefix=m_prefix)
+    assert got.dtype == want.dtype == torch.int32 and got.is_cuda
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+def _disk_segment(directory, layout, n=3000, m=8, r=16, seed=3):
+    """A random R-regular graph (some rows padded with the sentinel n) and
+    random codes, written as generation 0 of a segment file."""
+    rng = np.random.default_rng(seed)
+    nbrs = rng.integers(0, n, (n, r)).astype(np.int32)
+    nbrs[rng.random((n, r)) < 0.1] = n
+    codes = torch.from_numpy(rng.integers(0, 16 if layout == "fs4" else 256,
+                                          (n, m)).astype(np.uint8))
+    if layout == "fs4":
+        codes = pack.pack_codes(codes)
+    graph = Graph(torch.from_numpy(nbrs), torch.tensor(0))
+    write_segment(directory, BaseSegment(graph=graph, codes=codes, vectors=None,
+                                         layout=layout, dim_hint=32))
+    return rng
+
+
+@pytest.mark.parametrize("kw", [{}, {"prune_eps": 0.2, "m_prefix": 3},
+                                {"entries": 4, "max_rounds": 5, "expand": 2}])
+@pytest.mark.parametrize("layout", ["u8", "fs4"])
+def test_disk_search_on_the_card_equals_the_cpu_route(dev, tmp_path, layout, kw):
+    """A serial ``DiskEngine`` search scored on the card (``hop_adc`` or
+    ``hop_adc_fs_acc`` + dequant) equals the same search on the CPU route
+    (the plain versions) bit for bit: ids, dists and every counter. Both
+    sum in subspace order, so float LUTs need no integer grid."""
+    d = str(tmp_path)
+    rng = _disk_segment(d, layout)
+    q, m = 50, 8
+    if layout == "u8":
+        luts = torch.from_numpy((rng.random((q, m, 256)) * 4.0).astype(np.float32))
+    else:
+        luts = QuantizedLUT(torch.from_numpy(rng.integers(0, 256, (q, m, 16)).astype(np.uint8)),
+                            torch.from_numpy(rng.random(q).astype(np.float32) * 0.1),
+                            torch.from_numpy(rng.random(q).astype(np.float32)))
+    on_card = luts.to(dev)
+    queries = torch.zeros((q, 32))
+    res = {}
+    for where, table in ((dev, on_card), (torch.device("cpu"), luts)):
+        with DiskEngine.open(d, lut_fn=lambda _q, t=table: t, cache_records=256,
+                             device=where) as eng:
+            ops.reset_launch_counts()
+            res[where.type] = eng.search(queries, k=10, h=32, overlap=False, **kw)
+            counts = ops.launch_counts()
+        kernel = "hop_adc_fs" if layout == "fs4" else "hop_adc"
+        assert (counts[kernel] > 0) == (where.type == "cuda")
+    card, host = res["cuda"], res["cpu"]
+    assert card.ids.is_cuda
+    for name in ("ids", "dists", "hops", "n_dist", "rounds", "truncated"):
+        torch.testing.assert_close(getattr(card, name).cpu(), getattr(host, name),
+                                   rtol=0, atol=0, msg=name)

@@ -149,8 +149,7 @@ def test_serve_stdin_survives_garbage_lines(tmp_path, capsys, monkeypatch):
     assert sum(l.startswith("ids=") for l in out) == 1
 
 
-@pytest.mark.parametrize("scenario,item", [("sharded-graph", "item 14"),
-                                           ("disk", "item 13")])
+@pytest.mark.parametrize("scenario,item", [("sharded-graph", "item 14")])
 def test_unported_scenario_exits_with_its_queue_item(tmp_path, scenario, item):
     with pytest.raises(SystemExit, match=f"not ported.*{item}"):
         tserve.main(["--ckpt-dir", str(tmp_path), "--scenario", scenario,
