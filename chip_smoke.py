@@ -33,17 +33,21 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    bank conflicts set, ``hop_adc`` and ``hop_adc_i32`` beside a bound
    counted on the 32-byte sectors their timed ids, rows and LUT entries
    touch (``sector_bound``), the PyTorch backward of ``pq_pairwise`` at the
-   default training step's shape); then the int32-code variants of
-   ``adc_scan_batch``, ``adc_scan``, ``hop_adc`` and ``hop_gather`` at
-   K=512 and the subspace chunking past shared memory (M=64, K=1024 on
+   default training step's shape beside its bound); then the int32-code
+   variants of ``adc_scan_batch``, ``adc_scan``, ``hop_adc`` and
+   ``hop_gather`` at K=512 and the subspace chunking past shared memory (M=64, K=1024 on
    int32 codes; M=208, K=256 on uint8; fs4 ``adc_scan_fs`` at M=128 and
    201, exactly), each against its plain version, and the int32 variants
    at 1000 × 1M, M=16, K=512: the timed outputs held against their plain
    versions, and their times;
 4. small reference: the unit-test dataset served on the card and on the CPU
-   (the plain versions) from the same graph and quantizer must agree;
+   (the plain versions) from the same graph and quantizer must agree; at
+   S=4, one partition built on the CPU served by ``ShardedGraphEngine``
+   (three knob sets) and ``ShardedEngine(n_shards=4)`` in both layouts on
+   the card and on the CPU with the same LUTs must agree bit for bit;
 5. u8 path at full width: ``load_dataset("sift", scale=10)``, ``knn_ids``
-   ground truth, ``train_pq(M=16, K=256)``, ``build_vamana(r=64, l=128)``,
+   ground truth, ``train_pq(M=16, K=256)``, ``build_vamana(r=64, l=128)``
+   (beside phase 11, whose end it then waits for),
    the graph's own recall@10 under exact-distance routing, ``encode``,
    ``InMemoryEngine`` / ``HybridEngine`` search (k=10, h=32) and the
    exhaustive ADC of ``pq.base.adc``, with every kernel's launch count read
@@ -87,6 +91,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    sampled frontier, (e) pruning cuts ``n_dist``;
 11. cli: in a temporary directory, ``python -m repro_torch.launch.train``
    on the ``sift`` spec's registered 100k base at M=16, K=256, R=64, L=128
+   (its graphs built 4096 nodes a round, ``--graph-batch``)
    (200 steps, a checkpoint every 50, a crash injected at step 120 and a
    supervised restart), then ``python -m repro_torch.launch.serve`` for the
    ``memory``, ``hybrid`` (``--entries 8 --prune-eps 0.2``, a deadline from
@@ -95,17 +100,27 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    --refresh-every 2``: generation 0 is the 90k rows left by the hold-out,
    two refreshed consolidations), then ``disk`` twice, plain and with
    ``--chaos slow_read=2,corrupt_record,io=0.05`` (its ``[serve] disk:``
-   and ``[serve] disk io:`` lines parsed; no retries on the plain run); each
-   subprocess reports its kernel launches;
-12. stream (run after phase 10 and before phase 11's subprocesses, so that
-   phase 5's tensors can go before them): ``index.StreamingEngine`` on
+   and ``[serve] disk io:`` lines parsed; no retries on the plain run), then
+   ``sharded-graph --shards 4`` at R=32, l=64 three times: the first builds
+   ``graph_part4.npz``, the second loads it, the third runs with ``--chaos
+   dead=1`` (degraded); each subprocess reports its kernel launches. The
+   phase runs in a thread of its own beside phase 5's Vamana build (a
+   host-bound loop that leaves the card mostly idle): it starts after
+   phase 4, and phase 5 waits for it after the build, before its first
+   search, so no time measured from there on shares the card with it.
+   After ``train``, the serve runs go as five chains, three at a time:
+   memory then hybrid (whose deadline comes from the memory run), sharded,
+   streaming, disk then disk with chaos (which corrupts the first's
+   segment), and the three sharded-graph runs (which share
+   ``graph_part4.npz``);
+12. stream (run after phase 10): ``index.StreamingEngine`` on
    phase 5's 1M base, R=64 graph, u8 codes and PQ model, a delta of 50,000
    slots, 4 rounds that each tombstone 12,500 random live base rows (numpy
    seed 0) and insert the same vectors as new rows, then a 1000-query
    search at h=32, k=10 against ``live_ground_truth`` (QPS, the delta
    arm's own CUDA-event ms, ``n_live``, resident MB); a refreshed
    consolidation (``RefreshConfig()``) after round 2, a plain one with a
-   snapshot and ``StreamingEngine.restore`` after round 4; then the same 4
+   snapshot and ``StreamingEngine.restore`` after round 4; then 2 such
    rounds over phase 6's fs4 codes (no consolidation) and one round over
    K=512 int32 codes of a PQ trained here, whose search also runs down the
    ``hop_gather`` route (equal to the ``hop_adc`` route) and whose codes
@@ -129,8 +144,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    hit rate, bytes read a query, I/O wait, kernel launches; the u8 one also
    traced for the device's busy share); then the reference bench's serial
    vs overlapped comparison on 200 queries (``benchmarks/disk_serving.py``:
-   a warm-up and the best of two runs per arm, read latency at 1.2x the
-   per-round compute clipped to [0.5, 20] ms, and at 0), its speedup
+   a warm-up and one timed run per arm where the bench takes the best of
+   two, read latency at 1.2x the per-round compute clipped to [0.5, 20]
+   ms, and at 0), its speedup
    reported against the reference's 1.5x bar without failing on it. Checks:
    (a) on 100 queries per layout, the card's serial search equals the CPU
    route's (plain versions, the same LUTs on the CPU) bit for bit; (b) the
@@ -143,7 +159,32 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    explicit ``lut_fn``; (h) ``pq_pairwise``, ``hop_adc`` and ``hop_adc_fs``
    ran.
 
-Phases 5–13 each read every kernel's launch count around their own run.
+14. sharded (run after phase 13): ``build_partitioned_vamana`` into 4 shards
+   (R=32, l=64, α=1.2, the Vamana batch of phase 5) on phase 5's 1M base,
+   its seconds per shard; ``ShardedGraphEngine`` over phase 5's u8 and phase
+   6's fs4 codes (h=32, k=10), plain, ``expand=4`` and with ``vectors=``
+   (local rerank): recall@10, QPS, rounds (mean, max), hops, ``n_dist``,
+   launches, a traced search per layout (busy share, ``hop_adc`` /
+   ``hop_adc_fs`` mean µs a launch); ``ShardedEngine`` at 1 and 4 shards,
+   with and without the rerank, in both layouts; the partition's recall
+   under exact routing merged over the shards; then 100 ``fit`` steps at
+   ``TrainConfig`` defaults on one device and with 4 data-parallel replicas
+   and int8 compression (median step ms, peak GiB). Checks: (a) per layout,
+   on all 1000 queries, the lockstep S=4 search equals the four
+   ``InMemoryEngine`` searches over ``shard_subgraph(pg, s)`` merged by
+   ``partial_merge`` bit for bit (ids, dists, summed ``hops`` and ``n_dist``,
+   max ``rounds``, any ``truncated``); (b) the same with ``entries=4,
+   prune_eps=0.2`` and with ``max_rounds=5``; (c) S=4 recall ≥ phase 5's
+   ``InMemoryEngine`` recall − 0.05, and the rerank recall ≥ the plain one;
+   (d) a dead shard 1 returns none of its ids, no higher recall, degraded;
+   (e) a straggler past the deadline is dropped exactly as ``resolve_quorum``
+   says, and a quorum of 4 waits for it; (f) the S=4 scan's sorted top-10
+   distances equal the one-shard scan's bit for bit; (g) the partition's
+   exact-routed recall ≥ 0.5; (h) ``hop_adc``, ``hop_adc_fs``,
+   ``adc_scan_batch`` and ``adc_scan_fs`` ran; DP losses finite and every
+   error-feedback residual within one quantization step.
+
+Phases 5–14 each read every kernel's launch count around their own run.
 The last three lines are the kernels JSON (each kernel's ``launches`` summed
 over those counted runs; the int32 variants are rows of their own), the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -168,6 +209,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -178,9 +220,10 @@ SRC = os.path.join(ROOT, "src")
 HBM_BYTES_S = 3.35e12
 F32_FLOPS = 67e12
 # Nodes per batched Vamana insert round on the main path (the JAX default is
-# 1024): 8x fewer sequential beam rounds at 1M. The graph's exact-routed
-# recall, checked below, shows what the staler batch costs.
-VAMANA_BATCH = 8192
+# 1024): 16x fewer sequential beam searches at 1M, and each is host-bound,
+# so the build's time follows their count. The graph's exact-routed recall,
+# checked below, shows what the staler batch costs.
+VAMANA_BATCH = 16384
 # Least recall@10 of the graph under exact-distance routing at h=32 (see
 # main_path). An H100 read 0.7298 at 1M (batch 8192; 0.7193 at batch 1024)
 # and 0.9996 at 100k; a graph that routes nowhere scores near 0.
@@ -188,7 +231,9 @@ MIN_EXACT_RECALL = 0.65
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    # one write a message: phase 11's thread logs beside the main one
+    sys.stdout.write(msg + "\n")
+    sys.stdout.flush()
 
 
 def check(cond: bool, msg: str) -> None:
@@ -814,13 +859,23 @@ def scorer_parity_and_timing(n_base: int, n_query: int) -> tuple[dict, dict]:
         x2.grad = c2.grad = None
         ref.pq_pairwise_ref(x2, c2).backward(up)
 
+    # its bound, counted from kernels/ops.pq_pairwise_backward: x, codebooks
+    # and the upstream gradient read once, both gradients written once; two
+    # batched products of 2·N·M·K·dsub, the sums over k and over n, and the
+    # elementwise terms
+    bw_bytes = 4 * (2 * x.numel() + 2 * cb.numel() + up.numel())
+    bw_ops = (4 * n_step * m * k * dsub + 2 * n_step * m * k + 3 * x.numel()
+              + 3 * cb.numel())
+    bw_bound, bw_by = bound(bw_bytes, bw_ops)
     backward = dict(shape=f"({n_step},{m},{dsub})x({m},{k},{dsub}) default train step",
                     max_abs_err=grad_err,
                     ms=cuda_ms(lambda: ops.pq_pairwise_backward(x, cb, up), iters=20),
-                    plain_autograd_ms=cuda_ms(plain_backward, iters=10))
+                    plain_autograd_ms=cuda_ms(plain_backward, iters=10),
+                    bound_ms=bw_bound, bound_by=bw_by)
     log(f"[time] pq_pairwise backward {backward['shape']}: PyTorch products "
         f"{backward['ms']:.4f} ms, autograd of the plain version "
-        f"{backward['plain_autograd_ms']:.4f} ms (no bound: not a kernel)")
+        f"{backward['plain_autograd_ms']:.4f} ms; bound {bw_bound:.4f} ms ({bw_by}: "
+        f"{bw_bytes / 1e6:.1f} MB, {bw_ops / 1e9:.3f} GFLOP)")
 
     # ---- times at the main path's shapes (kernel: CUDA-graph replay) ----
     rows = []
@@ -1115,6 +1170,43 @@ def small_reference() -> None:
     check(same_top >= 0.99, "search on the card disagrees with the CPU")
     check(same_rows >= 0.95, "Vamana build on the card disagrees with the CPU")
     check(abs(rec_cpu - rec_gpu) <= 0.01, "recall on the card disagrees with the CPU")
+    small_sharded(cpu, m_cpu, codes_cpu)
+
+
+def small_sharded(cpu, m_cpu, codes_cpu) -> None:
+    """Phase 4 at S=4: one partition built on the CPU, the graph-routed and
+    the scan engines served from it on the card and on the CPU (the plain
+    versions) with the same LUTs, in both layouts; every result equal bit
+    for bit."""
+    import torch
+
+    from repro_torch.graphs.partition import build_partitioned_vamana
+    from repro_torch.pq import base, pack, train_pq_fs4
+    from repro_torch.search.engine import ShardedEngine, ShardedGraphEngine
+
+    pg = build_partitioned_vamana(cpu.base, SHARDS, generator=torch.Generator().manual_seed(2),
+                                  r=16, l=32, device="cpu")
+    m4 = train_pq_fs4(cpu.train, 8, generator=torch.Generator().manual_seed(3), iters=8,
+                      device="cpu")
+    luts = {"u8": base.build_lut(m_cpu, cpu.queries),
+            "fs4": base.build_lut(m4, cpu.queries, quantize=True)}
+    codes = {"u8": codes_cpu, "fs4": pack.pack_codes(base.encode(m4, cpu.base))}
+    on_card = lambda lut: (lut.cuda() if isinstance(lut, torch.Tensor)
+                           else type(lut)(*(t.cuda() for t in lut)))
+    same = {}
+    for lay in ("u8", "fs4"):
+        for kw in ({}, {"entries": 4, "prune_eps": 0.2}, {"max_rounds": 3, "expand": 2}):
+            res = [ShardedGraphEngine(pg, codes[lay], (lambda lut: lambda _: lut)(lut),
+                                      device=dev, n_shards=SHARDS).search(
+                       cpu.queries, k=10, h=32, **kw)
+                   for dev, lut in (("cpu", luts[lay]), ("cuda", on_card(luts[lay])))]
+            same[f"graph {lay} {kw}"] = same_search(*res)
+        scan = [ShardedEngine(codes[lay], (lambda lut: lambda _: lut)(lut), device=dev,
+                              n_shards=SHARDS).search(cpu.queries, k=10)
+                for dev, lut in (("cpu", luts[lay]), ("cuda", on_card(luts[lay])))]
+        same[f"scan {lay}"] = same_search(*scan)
+    log(f"[small] S={SHARDS} partition, card vs CPU bit for bit: {same}")
+    check(all(same.values()), "a sharded engine on the card disagrees with the CPU")
 
 
 # --------------------------------------------------------------------------
@@ -1180,7 +1272,7 @@ def device_busy(fn, wall_s: float, label: str = "InMemoryEngine") -> dict:
     return kernel_times(prof, "trace", f"one {label} search", wall_s * 1e3)
 
 
-def main_path(args) -> tuple:
+def main_path(args, wait_for_cli) -> tuple:
     import torch
 
     from repro_torch.data import load_dataset
@@ -1204,6 +1296,8 @@ def main_path(args) -> tuple:
     graph = timed_("build_vamana", lambda: build_vamana(
         ds.base, generator=torch.Generator().manual_seed(0), r=64, l=128,
         batch=args.vamana_batch))
+    # phase 11 ran beside the build; nothing timed from here on shares the card
+    timed_("wait_for_cli", wait_for_cli)
     # the graph alone: exact-distance routing, which the quantizer cannot cap
     exact_fn = beam.make_exact_dist_fn(ops.pad_sentinel_row(ds.base))
     graph_rec = {}
@@ -1937,6 +2031,7 @@ def adaptive_path(ds, gt, graph, u8_model, u8_codes, res_main, fs4_model, fs4_pa
 STREAM_CAPACITY = 50_000
 STREAM_BATCH = 12_500
 STREAM_ROUNDS = 4
+STREAM_FS4_ROUNDS = 2  # the fs4 rounds (no consolidation) add no check of their own
 RYW_CHUNK = 2_500     # read-your-writes queries per search call
 
 
@@ -2133,7 +2228,7 @@ def stream_path(ds, graph, u8_model, u8_codes, fs4_model, fs4_packed, work_dir: 
 
     eng = run("u8", u8_model, u8_codes, consolidations=True)
     del eng
-    eng = run("fs4", fs4_model, fs4_packed, consolidations=False)
+    eng = run("fs4", fs4_model, fs4_packed, consolidations=False, n_rounds=STREAM_FS4_ROUNDS)
     del eng
     # K=512: int32 codes through the same graph, one round
     wide = clock("train_pq K=512", lambda: train_pq(
@@ -2190,6 +2285,7 @@ DISK_OVERLAP_QUERIES = 200  # the serial-vs-overlapped comparison
 # per-round compute, clipped to [0.5, 20] ms; the reference's bar is 1.5x
 DISK_SLOW_MULT, DISK_SLOW_MS = 1.2, (0.5, 20.0)
 DISK_OVERLAP_BAR = 1.5
+DISK_OVERLAP_RUNS = 1  # timed searches per arm after its warm-up (the bench: 2)
 
 
 def disk_search(eng, q, **kw):
@@ -2213,7 +2309,7 @@ def same_search(a, b) -> bool:
                for f in ("ids", "dists", "hops", "rounds", "n_dist", "truncated"))
 
 
-def overlap_arm(eng, q, overlap: bool, timed_runs: int = 2) -> tuple:
+def overlap_arm(eng, q, overlap: bool, timed_runs: int = DISK_OVERLAP_RUNS) -> tuple:
     """The bench's ``_timed``: one warm-up search, then ``timed_runs``;
     (last result, QPS of the fastest run, ``last_io`` of that run)."""
     disk_search(eng, q, overlap=overlap)
@@ -2321,7 +2417,8 @@ def disk_path(ds, gt, graph, u8_model, u8_codes, fs4_model, fs4_packed, res_main
                **arms}
         overlap[slow] = row
         log(f"[disk] overlap ({slow} reads, slow_read_ms {row['slow_read_ms']:.2f}, "
-            f"{DISK_OVERLAP_QUERIES} queries, best of 2 after a warm-up): serial "
+            f"{DISK_OVERLAP_QUERIES} queries, best of {DISK_OVERLAP_RUNS} after a warm-up): "
+            f"serial "
             f"{arms['serial']['qps']:.1f} QPS recall {arms['serial']['recall']:.4f}, "
             f"overlapped {arms['overlapped']['qps']:.1f} QPS recall "
             f"{arms['overlapped']['recall']:.4f}; speedup {row['speedup']:.4f} (the "
@@ -2420,8 +2517,279 @@ def disk_path(ds, gt, graph, u8_model, u8_codes, fs4_model, fs4_packed, res_main
     log(f"[disk] launches: { {k: v for k, v in counts.items() if v} }; checks {checks}")
     return dict(serial=serial, overlap=overlap, checks=checks, times=times, launches=counts,
                 cache_mb=DISK_CACHE_MB, check_queries=DISK_CHECK_QUERIES,
-                overlap_queries=DISK_OVERLAP_QUERIES,
+                overlap_queries=DISK_OVERLAP_QUERIES, overlap_timed_runs=DISK_OVERLAP_RUNS,
                 same_top10_inmemory={"ordered": same_ordered, "set": same_set})
+
+
+# --------------------------------------------------------------------------
+# phase 14: the sharded engines at S = 4 on phase 5's base
+# --------------------------------------------------------------------------
+
+SHARDS = 4
+DEAD_SHARD = [True, False, True, True]
+# modeled shard latencies for the quorum check: shard 2 straggles past the
+# deadline, three of four shards (at least the majority quorum) make it
+STRAGGLER_LATENCY_S = [0.001, 0.001, 0.2, 0.001]
+DEADLINE_S = 0.05
+MIN_PARTITION_EXACT_RECALL = 0.5
+DP_STEPS = 100
+
+
+def per_shard_merge(pg, codes, lut_fn, queries, **kw):
+    """What the sharded graph engine is held to: one ``InMemoryEngine`` per
+    ``shard_subgraph(pg, s)`` over that shard's rows, local ids made global
+    (sentinel and padding slots (-1, +inf)), merged by ``partial_merge``;
+    ``hops`` and ``n_dist`` summed, ``rounds`` the max, ``truncated`` any."""
+    import torch
+
+    from repro_torch.dist.fault import partial_merge
+    from repro_torch.graphs.partition import shard_subgraph
+    from repro_torch.search.beam import SearchResult
+    from repro_torch.search.engine import InMemoryEngine
+
+    nl = pg.n_local
+    ids, dists, res = [], [], []
+    for s in range(pg.n_shards):
+        r = InMemoryEngine(shard_subgraph(pg, s), codes[s * nl:(s + 1) * nl], lut_fn,
+                           device=queries.device).search(queries, **kw)
+        ok = (r.ids.long() < min(pg.n - s * nl, nl)) & torch.isfinite(r.dists)
+        ids.append(torch.where(ok, r.ids.long() + s * nl, -1))
+        dists.append(torch.where(ok, r.dists, float("inf")))
+        res.append(r)
+    m = partial_merge(ids, dists, [True] * pg.n_shards, kw.get("k", 10))
+    stack = lambda name: torch.stack([getattr(r, name) for r in res])
+    return SearchResult(m.ids, m.dists, hops=stack("hops").sum(0, dtype=torch.int32),
+                        n_dist=stack("n_dist").sum(0, dtype=torch.int32),
+                        rounds=stack("rounds").amax(0), truncated=stack("truncated").any(0))
+
+
+def search_row(eng, queries, gt, label: str, **kw) -> tuple[dict, object]:
+    """One engine configuration: its first search's recall@10, rounds
+    (mean and max), hops, ``n_dist`` and truncated share, its QPS over the
+    1000 queries, and its kernel launches in one search."""
+    from repro_torch.kernels import ops
+    from repro_torch.search.metrics import measure_qps, recall_at_k
+
+    before = ops.launch_counts()
+    res = eng.search(queries, k=10, **kw)
+    after = ops.launch_counts()
+    qps, _ = measure_qps(lambda q: eng.search(q, k=10, **kw), queries)
+    row = {"recall": recall_at_k(res.ids, gt, 10), "qps": qps,
+           "rounds_mean": float(res.rounds.float().mean()),
+           "rounds_max": int(res.rounds.max()), "hops": float(res.hops.float().mean()),
+           "n_dist": float(res.n_dist.float().mean()),
+           "truncated": float(res.truncated.float().mean()),
+           "launches_one_search": {k: after[k] - before[k] for k in after
+                                   if after[k] > before[k]}}
+    log(f"[sharded] {label}: recall@10 {row['recall']:.4f} qps {qps:.1f} rounds "
+        f"{row['rounds_mean']:.2f} (max {row['rounds_max']}) hops {row['hops']:.2f} "
+        f"n_dist {row['n_dist']:.1f} truncated {row['truncated']:.3f}; launches in one "
+        f"search {row['launches_one_search']}")
+    return row, res
+
+
+def dp_train(ds, graph, u8_model, data_parallel: bool) -> dict:
+    """``fit`` at ``TrainConfig`` defaults for ``DP_STEPS`` steps (one
+    routing refresh, at step 0) from the PQ codebooks at R = I: single
+    device, or 4 replicas with int8 compression. Median step ms (the
+    refresh step left out), peak GiB, finite losses, and each replica's
+    error-feedback residual within one quantization step of its leaf."""
+    import statistics
+
+    import torch
+
+    from repro_torch.core import quantizer as Q
+    from repro_torch.core import trainer as T
+
+    cfg = Q.RPQConfig(dim=ds.base.shape[1], m=16, k=256)
+    kw = dict(data_parallel=True, compress_grads=True, dp_replicas=SHARDS) if data_parallel else {}
+    tcfg = T.TrainConfig(steps=DP_STEPS, log_every=10, **kw)
+    marks = {}
+
+    def on_step(step, params, opt_state):
+        torch.cuda.synchronize()
+        marks[step] = time.perf_counter()
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    marks[-1] = t0 = time.perf_counter()
+    st = T.fit(cfg, tcfg, ds.base, graph, seed=0, params=Q.init_params(cfg, u8_model.codebooks),
+               checkpoint_cb=on_step, verbose=False, device=ds.base.device)
+    wall = time.perf_counter() - t0
+    step_ms = statistics.median((marks[s] - marks[s - 1]) * 1e3 for s in range(1, DP_STEPS))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    label = "4 replicas, int8 + error feedback" if data_parallel else "one device"
+    hist = st.history
+    check(all(math.isfinite(h["total"]) and math.isfinite(h["gnorm"]) for h in hist),
+          f"DP training ({label}): a logged loss or norm is not finite")
+    row = {"steps": DP_STEPS, "wall_s": wall, "median_step_ms": step_ms, "peak_gib": peak,
+           "first_step_ms": (marks[0] - marks[-1]) * 1e3,
+           "loss": [(h["step"], h["total"]) for h in hist]}
+    if data_parallel:
+        worst = 0.0
+        for err, sc in zip(st.comp_state, st.comp_scales):
+            step = sc.reshape((SHARDS,) + (1,) * (err.dim() - 1))
+            worst = max(worst, float((err.abs() / step).max()))
+        check(worst <= 1.0, f"an error-feedback residual exceeds one quantization step ({worst})")
+        row["residual_over_step_max"] = worst
+    log(f"[sharded] train ({label}): {DP_STEPS} steps in {wall:.1f} s, median step "
+        f"{step_ms:.3f} ms (first {row['first_step_ms']:.1f} ms with the refresh), peak "
+        f"{peak:.2f} GiB; loss {hist[0]['total']:.4f} -> {hist[-1]['total']:.4f}"
+        + (f"; residual/step max {row['residual_over_step_max']:.4f}" if data_parallel else ""))
+    return row
+
+
+def sharded_path(args, ds, gt, graph, u8_model, u8_codes, fs4_model, fs4_packed,
+                 inmem_recall: float, kernels: dict) -> dict:
+    """Phase 14: the partitioned Vamana (S=4, R=32, l=64) on the 1M base,
+    ``ShardedGraphEngine`` in both layouts (plain, ``expand=4``, local
+    rerank), ``ShardedEngine(n_shards=4)`` beside one shard, the partition's
+    exact-routed recall, checks (a)–(h), and data-parallel training."""
+    import torch
+
+    from repro_torch.dist.fault import resolve_quorum
+    from repro_torch.graphs.partition import block_diagonal, build_partitioned_vamana
+    from repro_torch.kernels import ops
+    from repro_torch.pq import base
+    from repro_torch.search import beam
+    from repro_torch.search.engine import ShardedEngine, ShardedGraphEngine
+    from repro_torch.search.metrics import recall_at_k
+    from repro_torch.dist.fault import partial_merge
+
+    times: dict[str, float] = {}
+    timed_ = lambda label, fn: timed(times, "sharded", label, fn)
+    q, nq, n = ds.queries, ds.queries.shape[0], ds.base.shape[0]
+    dev = ds.base.device
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    pg = timed_("build_partitioned_vamana", lambda: build_partitioned_vamana(
+        ds.base, SHARDS, generator=torch.Generator().manual_seed(0), r=32, l=64, alpha=1.2,
+        batch=args.vamana_batch, verbose=True, device=dev))
+    nl = pg.n_local
+    codes = {"u8": u8_codes, "fs4": fs4_packed}
+    lut_fns = {"u8": lambda qq: base.build_lut(u8_model, qq),
+               "fs4": lambda qq: base.build_lut(fs4_model, qq, quantize=True)}
+    rows, res, busy, checks = {}, {}, {}, {}
+    for lay in ("u8", "fs4"):
+        eng = ShardedGraphEngine(pg, codes[lay], lut_fns[lay], n_shards=SHARDS, device=dev)
+        rows[lay], res[lay] = search_row(eng, q, gt, f"{lay} ShardedGraphEngine h=32", h=32)
+        busy[lay] = device_busy(lambda: eng.search(q, k=10, h=32), nq / rows[lay]["qps"],
+                                label=f"{lay} ShardedGraphEngine")
+        name = "hop_adc" if lay == "u8" else "hop_adc_fs"
+        rows[lay]["kernel_in_search"] = in_search(
+            busy[lay], "hop_adc_kernel<" if lay == "u8" else "hop_adc_fs", kernels[name],
+            f"{lay} ShardedGraphEngine")
+        rows[lay]["busy_share"] = busy[lay]["busy_share"]
+        rows[f"{lay}_expand4"], _ = search_row(eng, q, gt, f"{lay} expand=4", h=32, expand=4)
+        rer = ShardedGraphEngine(pg, codes[lay], lut_fns[lay], vectors=ds.base,
+                                 n_shards=SHARDS, device=dev)
+        rows[f"{lay}_rerank"], res[f"{lay}_rerank"] = search_row(
+            rer, q, gt, f"{lay} local rerank", h=32)
+        # (d) a dead shard: none of its ids, a degraded answer, and no
+        # higher recall where the merge ranks by exact distance (the rerank:
+        # dropping candidates cannot promote a true neighbour there; on ADC
+        # distances it can, so the plain engine's recall is only reported)
+        for tag, e in (("", eng), ("_rerank", rer)):
+            dead = e.search(q, k=10, h=32, alive=DEAD_SHARD)
+            ids = dead.ids.long()
+            check(not bool(((ids >= nl) & (ids < 2 * nl)).any()) and dead.degraded,
+                  f"(d) {lay}{tag}: a dead shard's id, or an undegraded answer")
+            rows[f"{lay}{tag}"]["dead_shard_recall"] = recall_at_k(dead.ids, gt, 10)
+        check(rows[f"{lay}_rerank"]["dead_shard_recall"] <= rows[f"{lay}_rerank"]["recall"],
+              f"(d) {lay}: a dead shard raised the reranked recall")
+        log(f"[sharded] (d) {lay}: shard 1 dead: recall@10 {rows[lay]['recall']:.4f} -> "
+            f"{rows[lay]['dead_shard_recall']:.4f} (ADC), reranked "
+            f"{rows[lay + '_rerank']['recall']:.4f} -> "
+            f"{rows[lay + '_rerank']['dead_shard_recall']:.4f}; no id of shard 1, degraded")
+        del rer
+        # (a), (b): the lockstep S=4 search equals the four per-shard searches
+        for tag, kw in (("a", {}), ("b_seeded_pruned", {"entries": 4, "prune_eps": 0.2}),
+                        ("b_max_rounds", {"max_rounds": 5})):
+            same = same_search(eng.search(q, k=10, h=32, **kw),
+                               per_shard_merge(pg, codes[lay], lut_fns[lay], q, k=10, h=32,
+                                               **kw))
+            check(same, f"({tag[0]}) {lay} {kw}: the S=4 search differs from the per-shard "
+                  f"InMemoryEngine searches merged by partial_merge")
+            checks[f"{tag}_{lay}"] = True
+        # (e) a straggler past the deadline
+        decision = resolve_quorum([True] * SHARDS, STRAGGLER_LATENCY_S, DEADLINE_S)
+        check(list(decision.alive) == [True, True, False, True],
+              f"(e) resolve_quorum kept {decision.alive}")
+        late = eng.search(q, k=10, h=32, deadline_s=DEADLINE_S,
+                          shard_latency_s=STRAGGLER_LATENCY_S)
+        want = eng.search(q, k=10, h=32, alive=list(decision.alive))
+        waited = eng.search(q, k=10, h=32, deadline_s=DEADLINE_S,
+                            shard_latency_s=STRAGGLER_LATENCY_S, quorum=SHARDS)
+        check(same_search(late, want) and late.degraded,
+              f"(e) {lay}: the straggler was not dropped as resolve_quorum says")
+        check(same_search(waited, res[lay]) and not waited.degraded,
+              f"(e) {lay}: a quorum of {SHARDS} did not wait for the straggler")
+        checks[f"d_{lay}"] = checks[f"e_{lay}"] = True
+        del eng
+    # (c) the reference's bar (tests/test_sharded_graph.py)
+    check(rows["u8"]["recall"] >= inmem_recall - 0.05,
+          f"(c) S=4 recall {rows['u8']['recall']:.4f} below InMemoryEngine's "
+          f"{inmem_recall:.4f} - 0.05")
+    for lay in ("u8", "fs4"):
+        check(rows[f"{lay}_rerank"]["recall"] >= rows[lay]["recall"],
+              f"(c) {lay}: the local rerank lowered recall")
+    checks["c"] = True
+
+    # the scan engine: S=4 beside one shard, with and without the rerank
+    scan = {}
+    for lay in ("u8", "fs4"):
+        for s in (1, SHARDS):
+            for vec in (False, True):
+                eng = ShardedEngine(codes[lay], lut_fns[lay], n_shards=s, device=dev,
+                                    vectors=ds.base if vec else None)
+                tag = f"{lay}_s{s}" + ("_rerank" if vec else "")
+                scan[tag], scan_res = search_row(eng, q, gt, f"{lay} ShardedEngine "
+                                                 f"n_shards={s}" + (" + rerank of 40" if vec else ""))
+                if not vec:
+                    res[f"scan_{lay}_s{s}"] = scan_res
+                del eng
+        # (f) the S=4 scan's sorted top-10 distances are the one-shard scan's
+        one, four = res[f"scan_{lay}_s1"], res[f"scan_{lay}_s{SHARDS}"]
+        check(torch.equal(one.dists, four.dists),
+              f"(f) {lay}: the S=4 scan's top-10 distances differ from one shard's")
+        scan[f"{lay}_same_ids_share"] = float((one.ids == four.ids).all(dim=1).float().mean())
+        checks[f"f_{lay}"] = True
+        log(f"[sharded] (f) {lay}: S=4 top-10 distances equal one shard's; ids equal on "
+            f"{scan[f'{lay}_same_ids_share']:.4f} of queries (the rest differ among equal "
+            f"distances)")
+
+    # (g) the partition's own recall under exact routing, merged over shards
+    nbrs, medoids = block_diagonal(pg)
+    vec_p = ops.pad_sentinel_row(ops.pad_rows_to_multiple(ds.base, SHARDS))
+    rx = beam.beam_search(nbrs, medoids.repeat(nq), q, beam.make_exact_dist_fn(vec_p), h=32,
+                          max_steps=512, lanes_per_query=SHARDS)
+    ids, d = rx.ids[:, :10].long(), rx.dists[:, :10]
+    ok = (ids < n) & torch.isfinite(d)
+    ids = torch.where(ok, ids, -1).reshape(nq, SHARDS, 10)
+    d = torch.where(ok, d, float("inf")).reshape(nq, SHARDS, 10)
+    merged = partial_merge([ids[:, s] for s in range(SHARDS)], [d[:, s] for s in range(SHARDS)],
+                           [True] * SHARDS, 10)
+    exact_recall = recall_at_k(merged.ids, gt, 10)
+    del vec_p, rx, nbrs
+    log(f"[sharded] partition recall@10 under exact routing (h=32, merged over {SHARDS} "
+        f"shards): {exact_recall:.4f}")
+    check(exact_recall >= MIN_PARTITION_EXACT_RECALL,
+          f"(g) the partition routes badly: exact recall@10 {exact_recall:.4f}")
+    checks["g"] = True
+
+    train = {"single": dp_train(ds, graph, u8_model, False),
+             "dp4": dp_train(ds, graph, u8_model, True)}
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    # (h) the phase ran its kernels
+    for name in ("hop_adc", "hop_adc_fs", "adc_scan_batch", "adc_scan_fs"):
+        check(counts[name] > 0, f"(h) kernel {name} was not launched by the sharded phase")
+    checks["h_kernels"] = True
+    log(f"[sharded] launches: { {k: v for k, v in counts.items() if v} }; checks {checks}")
+    return dict(times=times, rows=rows, scan=scan, exact_recall=exact_recall, train=train,
+                checks=checks, launches=counts, peak_gib=peak_gb, n_local=nl,
+                busy={k: {kk: v for kk, v in b.items() if kk != "per_kernel"}
+                      for k, b in busy.items()})
 
 
 # --------------------------------------------------------------------------
@@ -2452,93 +2820,140 @@ DISK_IO_LINE = re.compile(
     r"bytes_read=(?P<bytes_read>\d+) n_reads=(?P<n_reads>\d+) "
     r"io_wait=(?P<io_wait_ms>[\d.]+)ms retries=(?P<retries>\d+)$", re.M)
 DISK_CHAOS = "slow_read=2,corrupt_record,io=0.05"
-CLI_WIDTHS = ["--graph-r", "64", "--graph-l", "128"]
+# the graphs the CLIs build at 100k: 4096 nodes a round, 4x fewer beam
+# searches than the reference's 1024
+CLI_WIDTHS = ["--graph-r", "64", "--graph-l", "128", "--graph-batch", "4096"]
 TRAIN_ARGS = ["--dataset", "sift", "--m", "16", "--k", "256", *CLI_WIDTHS,
               "--steps", "200", "--checkpoint-every", "50", "--fail-at-step", "120"]
+
+
+# the CLI subprocesses still running, killed by stop_cli when the run ends
+CLI_PROCS: set = set()
+CLI_LOCK = threading.Lock()
+CLI_STOP = threading.Event()
+CLI_WORKERS = 3  # serve chains run at once after train
+
+
+def stop_cli() -> None:
+    """Kill every CLI subprocess still running and start no other."""
+    with CLI_LOCK:
+        CLI_STOP.set()
+        for proc in CLI_PROCS:
+            proc.kill()
 
 
 def run_cli(tag: str, module: str, args: list, timeout: float) -> tuple[str, dict, float]:
     """One driver as a subprocess; fails the run on a non-zero exit.
     Returns its stdout, its kernel launches and its wall seconds."""
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", CLI_WRAPPER, SRC, module, *args],
-                          capture_output=True, text=True, timeout=timeout, cwd=ROOT)
+    with CLI_LOCK:
+        check(not CLI_STOP.is_set(), f"{tag}: not started, the run is ending")
+        proc = subprocess.Popen([sys.executable, "-c", CLI_WRAPPER, SRC, module, *args],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                cwd=ROOT)
+        CLI_PROCS.add(proc)
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    finally:
+        CLI_PROCS.discard(proc)
     wall = time.perf_counter() - t0
-    for line in proc.stdout.splitlines():
-        if not line.startswith("[rpq]") and not line.startswith("[launches]"):
-            log(f"[cli] {tag} | {line}")
+    lines = [f"[cli] {tag} | {line}" for line in stdout.splitlines()
+             if not line.startswith(("[rpq]", "[launches]"))]
+    if lines:
+        log("\n".join(lines))
     if proc.returncode:
-        log(proc.stderr[-4000:])
+        log(stderr[-4000:])
     check(proc.returncode == 0, f"{tag}: exit code {proc.returncode}")
-    found = re.findall(r"^\[launches\] (\{.*\})$", proc.stdout, re.M)
+    found = re.findall(r"^\[launches\] (\{.*\})$", stdout, re.M)
     check(len(found) == 1, f"{tag}: no launch counts")
     log(f"[cli] {tag}: {wall:.1f} s, launches {found[0]}")
-    return proc.stdout, json.loads(found[0]), wall
+    return stdout, json.loads(found[0]), wall
 
 
 def cli_path() -> dict:
-    launches: dict[str, int] = {}
-    walls, serve = {}, {}
+    from concurrent.futures import ThreadPoolExecutor
 
-    def add(counts):
-        for k, v in counts.items():
-            launches[k] = launches.get(k, 0) + v
+    t_cli = time.perf_counter()
+    runs, walls, serve = {}, {}, {}
 
     with tempfile.TemporaryDirectory(prefix="rpq_cli_") as d:
-        out, counts, walls["train"] = run_cli(
-            "train", "repro_torch.launch.train", TRAIN_ARGS + ["--ckpt-dir", d], 900)
-        add(counts)
+        def cli(tag, module, args, timeout=600):
+            out, runs[tag], walls[tag.replace(" ", "_").replace("-", "_")] = run_cli(
+                tag, module, args, timeout)
+            return out
+
+        out = cli("train", "repro_torch.launch.train", TRAIN_ARGS + ["--ckpt-dir", d], 900)
         check("[supervise] restart 1" in out, "train: no supervised restart")
         check("[train] resumed from step 100" in out, "train: did not resume from step 100")
         check("[train] final recall@10=" in out, "train: no final evaluation")
         serve_args = ["--ckpt-dir", d, *CLI_WIDTHS]
-        out, counts, walls["serve_memory"] = run_cli(
-            "serve memory", "repro_torch.launch.serve",
-            serve_args + ["--scenario", "memory"], 600)
-        add(counts)
-        serve["memory"] = parse_serve(out, "memory")
-        # the hybrid run's deadline: half the memory run's batch of 1000
-        deadline_ms = 0.5 * 1000.0 / serve["memory"]["qps"] * 1e3
-        hyb_args = ["--scenario", "hybrid", "--entries", "8", "--prune-eps", "0.2",
-                    "--deadline-ms", f"{deadline_ms:.3f}", "--degrade-level", "2",
-                    "--chaos", "io=0.05"]
-        out, counts, walls["serve_hybrid"] = run_cli(
-            "serve hybrid", "repro_torch.launch.serve", serve_args + hyb_args, 600)
-        add(counts)
-        serve["hybrid"] = parse_serve(out, "hybrid")
-        serve["hybrid"]["deadline_ms"] = deadline_ms
-        check("max_rounds=" in out, "serve hybrid: no deadline budget")
-        out, counts, walls["serve_sharded"] = run_cli(
-            "serve sharded", "repro_torch.launch.serve",
-            serve_args + ["--scenario", "sharded"], 600)
-        add(counts)
-        serve["sharded"] = parse_serve(out, "sharded")
-        out, counts, walls["serve_streaming"] = run_cli(
-            "serve streaming", "repro_torch.launch.serve",
-            serve_args + ["--scenario", "streaming", "--churn", "0.1", "--churn-rounds", "4",
-                          "--refresh-every", "2"], 600)
-        add(counts)
-        serve["streaming"] = parse_streaming(out)
-        disk_args = serve_args + ["--scenario", "disk"]
-        out, counts, walls["serve_disk"] = run_cli(
-            "serve disk", "repro_torch.launch.serve", disk_args, 600)
-        add(counts)
-        serve["disk"] = parse_disk(out)
-        check(serve["disk"]["retries"] == 0, "serve disk: retries without injected faults")
-        out, counts, walls["serve_disk_chaos"] = run_cli(
-            "serve disk chaos", "repro_torch.launch.serve",
-            disk_args + ["--chaos", DISK_CHAOS], 600)
-        add(counts)
-        serve["disk_chaos"] = parse_disk(out)
-        for line in ("[serve] chaos: silently corrupted record",
-                     "[serve] chaos: transient read fault p=0.05 injected on segment reads"):
-            check(line in out, f"serve disk chaos: no '{line}' line")
-    for name in ("pq_pairwise", "hop_adc", "adc_scan_batch"):
-        check(launches.get(name, 0) > 0, f"kernel {name} was not launched by the CLIs")
+        srv = lambda tag, extra: cli(tag, "repro_torch.launch.serve", serve_args + extra)
+
+        def memory_then_hybrid():
+            serve["memory"] = parse_serve(srv("serve memory", ["--scenario", "memory"]),
+                                          "memory")
+            # the hybrid run's deadline: half the memory run's batch of 1000
+            deadline_ms = 0.5 * 1000.0 / serve["memory"]["qps"] * 1e3
+            out = srv("serve hybrid", ["--scenario", "hybrid", "--entries", "8",
+                                       "--prune-eps", "0.2", "--deadline-ms",
+                                       f"{deadline_ms:.3f}", "--degrade-level", "2",
+                                       "--chaos", "io=0.05"])
+            serve["hybrid"] = parse_serve(out, "hybrid")
+            serve["hybrid"]["deadline_ms"] = deadline_ms
+            check("max_rounds=" in out, "serve hybrid: no deadline budget")
+
+        def sharded():
+            serve["sharded"] = parse_serve(srv("serve sharded", ["--scenario", "sharded"]),
+                                           "sharded")
+
+        def streaming():
+            serve["streaming"] = parse_streaming(srv(
+                "serve streaming", ["--scenario", "streaming", "--churn", "0.1",
+                                    "--churn-rounds", "4", "--refresh-every", "2"]))
+
+        def disk():
+            serve["disk"] = parse_disk(srv("serve disk", ["--scenario", "disk"]))
+            check(serve["disk"]["retries"] == 0, "serve disk: retries without injected faults")
+            out = srv("serve disk chaos", ["--scenario", "disk", "--chaos", DISK_CHAOS])
+            serve["disk_chaos"] = parse_disk(out)
+            for line in ("[serve] chaos: silently corrupted record",
+                         "[serve] chaos: transient read fault p=0.05 injected on segment reads"):
+                check(line in out, f"serve disk chaos: no '{line}' line")
+
+        def sharded_graph():
+            # at the sharded_graph cell's R=32, l=64: the first run builds
+            # graph_part4.npz, the second loads it, the third drops shard 1
+            part_args = ["--ckpt-dir", d, "--graph-r", "32", "--graph-l", "64",
+                         "--graph-batch", "4096",
+                         "--scenario", "sharded-graph", "--shards", str(SHARDS)]
+            for tag, extra, line in (("", [], "[serve] partition built in"),
+                                     ("_cached", [], "[serve] partition loaded from"),
+                                     ("_dead", ["--chaos", "dead=1"],
+                                      f"[serve] chaos: 1/{SHARDS} shard(s) dead")):
+                out = cli(f"serve sharded-graph{tag}", "repro_torch.launch.serve",
+                          part_args + extra)
+                check(line in out, f"serve sharded-graph{tag}: no '{line}' line")
+                serve[f"sharded_graph{tag}"] = parse_serve(out, "sharded-graph")
+                check(serve[f"sharded_graph{tag}"]["degraded"] == (tag == "_dead"),
+                      f"serve sharded-graph{tag}: degraded flag wrong")
+
+        # the longest chains first; each raises what its checks raise
+        with ThreadPoolExecutor(CLI_WORKERS) as pool:
+            chains = [pool.submit(f) for f in (streaming, sharded_graph, disk,
+                                               memory_then_hybrid, sharded)]
+        for chain in chains:
+            chain.result()
     from repro_torch.kernels import ops
 
-    full = {k: launches.get(k, 0) for k in ops.launch_counts()}
+    full = {k: sum(c.get(k, 0) for c in runs.values()) for k in ops.launch_counts()}
+    for name in ("pq_pairwise", "hop_adc", "adc_scan_batch"):
+        check(full[name] > 0, f"kernel {name} was not launched by the CLIs")
     log(f"[cli] launches: {full}; wall {walls}")
+    log(f"[cli] done in {time.perf_counter() - t_cli:.1f} s")
     return dict(walls=walls, serve=serve, launches=full)
 
 
@@ -2643,8 +3058,16 @@ def main() -> int:
     t0 = time.perf_counter()
     small_reference()
     log(f"[small] done in {time.perf_counter() - t0:.1f} s")
-    result, ds, gt, graph, pq_model, pq_codes, res_main = main_path(args)
-    phases = {"main": result}
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(1) as background:
+        cli = background.submit(cli_path)  # phase 11, beside phase 5's build
+        try:
+            result, ds, gt, graph, pq_model, pq_codes, res_main = main_path(args, cli.result)
+        finally:
+            if not cli.done():
+                stop_cli()
+    phases = {"main": result, "cli": cli.result()}
     result["hop_adc_in_search"] = in_search(result["search_busy"], "hop_adc_kernel<",
                                             kernels["hop_adc"], "InMemoryEngine")
     t0 = time.perf_counter()
@@ -2676,11 +3099,11 @@ def main() -> int:
         phases["disk"] = disk_path(ds, gt, graph, pq_model, pq_codes, fs4_model, fs4_packed,
                                    res_main, result["recall"]["inmemory"], d)
     log(f"[disk] done in {time.perf_counter() - t0:.1f} s")
-    del ds, gt, graph, pq_codes, fs4_packed, res_main
-    torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    phases["cli"] = cli_path()
-    log(f"[cli] done in {time.perf_counter() - t0:.1f} s")
+    phases["sharded"] = sharded_path(args, ds, gt, graph, pq_model, pq_codes, fs4_model,
+                                     fs4_packed, result["recall"]["inmemory"], kernels)
+    log(f"[sharded] done in {time.perf_counter() - t0:.1f} s")
+    del ds, gt, graph, pq_codes, fs4_packed, res_main
     for name, row in kernels.items():
         row["launches"] = sum(p["launches"][name] for p in phases.values())
     log(f"[total] {time.perf_counter() - t_start:.1f} s")

@@ -14,8 +14,14 @@ resumed at step s re-derives the draws of the uninterrupted run; a test can
 hand in every draw of a step instead (``fit(draws=)``, :class:`StepDraws`).
 ``fit(tombstones=)`` is the streaming index's codebook-refresh path: anchors
 and routing queries come from live vertices only, and the bitset threads
-into both samplers. ``data_parallel`` and ``compress_grads`` of the
-reference wait for queue A item 14.
+into both samplers.
+
+``TrainConfig(data_parallel=True)`` is the reference's ``shard_map`` step
+on one device: the triplet and routing batches split into ``dp_replicas``
+row slices, each with its own Gumbel noise and its own backward, each
+slice's gradient optionally int8-compressed with its own error-feedback
+residual (``compress_grads``, ``dist/compression.py``), then the slices
+averaged, clipped and stepped (:func:`make_dp_train_step`).
 """
 
 from __future__ import annotations
@@ -28,10 +34,12 @@ import numpy as np
 import torch
 
 from repro_torch.common import OptState, adam, clip_by_global_norm, one_cycle
+from repro_torch.common.treeutil import tree_map
 from repro_torch.core import features as F
 from repro_torch.core import losses as L
 from repro_torch.core import quantizer as Q
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, visible_cuda_devices
+from repro_torch.dist import compression as comp
 from repro_torch.graphs.adjacency import Graph
 from repro_torch.pq import base as pqbase
 from repro_torch.pq.pq import train_pq
@@ -56,6 +64,10 @@ class TrainConfig:
     use_routing: bool = True         # ablations: RPQ w/ N only
     use_neighborhood: bool = True    # ablations: RPQ w/ R only
     log_every: int = 50
+    # distribution: the reference's data-parallel step on one device
+    data_parallel: bool = False      # S replicas = S row slices of each batch
+    compress_grads: bool = False     # int8 + error feedback before the mean
+    dp_replicas: Optional[int] = None  # S; default: the visible CUDA devices
 
 
 @dataclasses.dataclass
@@ -64,6 +76,10 @@ class TrainState:
     opt_state: OptState
     step: int
     history: list
+    # data_parallel + compress_grads: each replica's error-feedback residual
+    # (leaves (S, ...)) and the last step's per-replica scales (leaves (S,))
+    comp_state: Optional[Q.RPQParams] = None
+    comp_scales: Optional[Q.RPQParams] = None
 
 
 def seeded_generator(device, *entropy: int) -> torch.Generator:
@@ -85,7 +101,8 @@ class StepDraws(NamedTuple):
     triplets: Callable      # sample_triplets' ``draws``
     subsample: Callable     # n_valid (0-d tensor) → (routing_batch,) indices
     noise: object           # the joint loss's (neighborhood, routing) Gumbel
-                            # noise, or a torch.Generator to draw it from
+                            # noise (data_parallel: a sequence of one per
+                            # replica), or a torch.Generator to draw it from
 
 
 def live_ids_of(tombstones, n: int) -> np.ndarray:
@@ -152,6 +169,26 @@ def _make_loss_fn(cfg: Q.RPQConfig, tcfg: TrainConfig):
     return loss_fn
 
 
+def _grads(loss_fn, cfg: Q.RPQConfig, params, x, trip, route, generator, noise):
+    """One backward: (gradient tree, detached report); θ's gradient is zero
+    when the rotation is frozen."""
+    p = Q.RPQParams(*(t.detach().requires_grad_() for t in params))
+    total, report = loss_fn(p, x, trip, route, generator, noise)
+    grads = torch.autograd.grad(total, p, allow_unused=True)
+    grads = Q.RPQParams(*(torch.zeros_like(t) if g is None else g
+                          for g, t in zip(grads, p)))
+    if not cfg.learn_rotation:
+        grads = grads._replace(theta=torch.zeros_like(grads.theta))
+    return grads, L.LossReport(*(t.detach() for t in report))
+
+
+def _update(tcfg: TrainConfig, optimizer, grads, opt_state, params):
+    grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+    with torch.no_grad():
+        params, opt_state = optimizer.update(grads, opt_state, params)
+    return params, opt_state, gnorm
+
+
 def make_train_step(cfg: Q.RPQConfig, tcfg: TrainConfig, optimizer):
     """Returns step(params, opt_state, x, trip, route, *, generator=None,
     noise=None) → (params, opt_state, report, gnorm). ``noise`` is the
@@ -160,18 +197,75 @@ def make_train_step(cfg: Q.RPQConfig, tcfg: TrainConfig, optimizer):
     loss_fn = _make_loss_fn(cfg, tcfg)
 
     def step(params, opt_state, x, trip, route, *, generator=None, noise=None):
-        p = Q.RPQParams(*(t.detach().requires_grad_() for t in params))
-        total, report = loss_fn(p, x, trip, route, generator, noise)
-        grads = torch.autograd.grad(total, p, allow_unused=True)
-        grads = Q.RPQParams(*(torch.zeros_like(t) if g is None else g
-                              for g, t in zip(grads, p)))
-        if not cfg.learn_rotation:
-            grads = grads._replace(theta=torch.zeros_like(grads.theta))
-        grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
-        with torch.no_grad():
-            params, opt_state = optimizer.update(grads, opt_state, params)
-        report = L.LossReport(*(t.detach() for t in report))
+        grads, report = _grads(loss_fn, cfg, params, x, trip, route, generator,
+                               noise)
+        params, opt_state, gnorm = _update(tcfg, optimizer, grads, opt_state,
+                                           params)
         return params, opt_state, report, gnorm
+
+    return step
+
+
+def init_dp_comp_state(params, n_dp: int):
+    """Per-replica error-feedback residuals: a leading (n_dp,) axis on every
+    leaf (each replica keeps its OWN residual — error feedback is local by
+    construction)."""
+    return tree_map(lambda p: torch.zeros((n_dp,) + tuple(p.shape),
+                                          dtype=torch.float32, device=p.device),
+                    params)
+
+
+def _row_slice(batch, r: int, n_dp: int):
+    """Replica r's contiguous row slice of every field of a batch."""
+    return type(batch)(*(t.reshape((n_dp, -1) + tuple(t.shape[1:]))[r]
+                         for t in batch))
+
+
+def _mean(trees: list):
+    """The leafwise mean of same-shaped trees (the reference's ``pmean``)."""
+    return tree_map(lambda *ts: torch.stack(ts).mean(dim=0), *trees)
+
+
+def make_dp_train_step(cfg: Q.RPQConfig, tcfg: TrainConfig, optimizer,
+                       n_dp: int, compress: bool = False):
+    """The reference's data-parallel step with its ``n_dp`` replicas as row
+    slices on one device: replica r takes rows [r·B/n_dp, (r+1)·B/n_dp) of
+    the triplet and routing batches, its own Gumbel noise and its own
+    backward; with ``compress`` its gradient is int8-quantized with its own
+    error-feedback residual; then the replicas' gradients and reports are
+    averaged, clipped and stepped, in the reference's order.
+
+    Returns step(params, opt_state, comp_state, x, trip, route, *,
+    generator=None, noise=None) → (params, opt_state, comp_state, report,
+    gnorm, scales). ``noise`` is a sequence of one (neighborhood triple,
+    routing tensor) per replica, else each replica draws from
+    ``generator`` in replica order; ``comp_state`` comes from
+    :func:`init_dp_comp_state` (``None`` without ``compress``), and
+    ``scales`` is the step's per-replica scale tree (``None`` without)."""
+    loss_fn = _make_loss_fn(cfg, tcfg)
+
+    def step(params, opt_state, comp_state, x, trip, route, *, generator=None,
+             noise=None):
+        grads, reports, resid, scales = [], [], [], []
+        for r in range(n_dp):
+            g, rep = _grads(loss_fn, cfg, params, x, _row_slice(trip, r, n_dp),
+                            _row_slice(route, r, n_dp), generator,
+                            None if noise is None else noise[r])
+            if compress:
+                (q, sc), err = comp.compress_tree(
+                    g, tree_map(lambda e: e[r], comp_state))
+                g = comp.decompress_tree((q, sc))   # ≙ the int8 + scale wire format
+                resid.append(err)
+                scales.append(sc)
+            grads.append(g)
+            reports.append(rep)
+        if compress:
+            comp_state = tree_map(lambda *es: torch.stack(es), *resid)
+            scales = tree_map(lambda *ss: torch.stack(ss), *scales)
+        params, opt_state, gnorm = _update(tcfg, optimizer, _mean(grads),
+                                           opt_state, params)
+        return (params, opt_state, comp_state, _mean(reports), gnorm,
+                scales if compress else None)
 
     return step
 
@@ -196,7 +290,12 @@ def fit(cfg: Q.RPQConfig, tcfg: TrainConfig, x: torch.Tensor, graph: Graph, *,
     threads into both samplers, so no dead id reaches a loss term; every
     vertex dead raises. ``draws(step, n_live) → StepDraws`` replaces the
     step's generator draws (the pool and anchor positions index the live
-    ids)."""
+    ids).
+
+    ``tcfg.data_parallel`` runs :func:`make_dp_train_step` over
+    ``tcfg.dp_replicas`` replicas, whose count must divide both batches
+    (else ``ValueError``); the final error-feedback residuals and scales
+    come back in the TrainState."""
     dev = resolve_device(device)
     x = x.to(dev, torch.float32)
     n = x.shape[0]
@@ -216,7 +315,20 @@ def fit(cfg: Q.RPQConfig, tcfg: TrainConfig, x: torch.Tensor, graph: Graph, *,
     optimizer = adam(one_cycle(tcfg.lr, tcfg.steps))
     if opt_state is None:
         opt_state = optimizer.init(params)
-    step_fn = make_train_step(cfg, tcfg, optimizer)
+    n_dp, comp_state, comp_scales = 1, None, None
+    if tcfg.data_parallel:
+        n_dp = tcfg.dp_replicas or visible_cuda_devices()
+        if tcfg.triplet_batch % n_dp or tcfg.routing_batch % n_dp:
+            raise ValueError(
+                f"data_parallel: triplet_batch={tcfg.triplet_batch} and "
+                f"routing_batch={tcfg.routing_batch} must divide the "
+                f"{n_dp}-way data axis")
+        step_fn = make_dp_train_step(cfg, tcfg, optimizer, n_dp,
+                                     compress=tcfg.compress_grads)
+        if tcfg.compress_grads:
+            comp_state = init_dp_comp_state(params, n_dp)
+    else:
+        step_fn = make_train_step(cfg, tcfg, optimizer)
 
     routing_pool: Optional[F.RoutingBatch] = None
     history = []
@@ -242,17 +354,23 @@ def fit(cfg: Q.RPQConfig, tcfg: TrainConfig, x: torch.Tensor, graph: Graph, *,
             idx = dr.subsample(routing_pool.valid.sum())
             route = F.subsample_routing(routing_pool, tcfg.routing_batch,
                                         idx=idx.to(dev))
-        else:  # placeholder batch, masked out by use_routing=False
+        else:  # placeholder batch, masked out by use_routing=False; one
+            #    row per replica so it slices under data_parallel
             route = F.RoutingBatch(
-                q=torch.zeros((1, x.shape[1]), device=dev),
-                cand=torch.zeros((1, tcfg.beam_h), dtype=torch.int64, device=dev),
-                label=torch.zeros((1,), dtype=torch.int64, device=dev),
-                valid=torch.zeros((1,), dtype=torch.bool, device=dev))
+                q=torch.zeros((n_dp, x.shape[1]), device=dev),
+                cand=torch.zeros((n_dp, tcfg.beam_h), dtype=torch.int64, device=dev),
+                label=torch.zeros((n_dp,), dtype=torch.int64, device=dev),
+                valid=torch.zeros((n_dp,), dtype=torch.bool, device=dev))
         # ---- joint step ----
-        noise = dr.noise if isinstance(dr.noise, tuple) else None
-        gen = None if noise is not None else dr.noise
-        params, opt_state, report, gnorm = step_fn(
-            params, opt_state, x, trip, route, generator=gen, noise=noise)
+        gen = dr.noise if isinstance(dr.noise, torch.Generator) else None
+        noise = None if gen is not None else dr.noise
+        if tcfg.data_parallel:
+            params, opt_state, comp_state, report, gnorm, comp_scales = step_fn(
+                params, opt_state, comp_state, x, trip, route, generator=gen,
+                noise=noise)
+        else:
+            params, opt_state, report, gnorm = step_fn(
+                params, opt_state, x, trip, route, generator=gen, noise=noise)
         if step % tcfg.log_every == 0:
             rec = {k: float(v) for k, v in report._asdict().items()}
             rec.update(step=step, gnorm=float(gnorm), wall=time.time() - t0)
@@ -264,7 +382,8 @@ def fit(cfg: Q.RPQConfig, tcfg: TrainConfig, x: torch.Tensor, graph: Graph, *,
         if checkpoint_cb is not None:
             checkpoint_cb(step, params, opt_state)
     return TrainState(params=params, opt_state=opt_state, step=tcfg.steps,
-                      history=history)
+                      history=history, comp_state=comp_state,
+                      comp_scales=comp_scales)
 
 
 def to_model(cfg: Q.RPQConfig, params: Q.RPQParams) -> pqbase.QuantizerModel:

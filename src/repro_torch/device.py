@@ -25,3 +25,9 @@ def full_f32_matmul() -> None:
     products."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def visible_cuda_devices() -> int:
+    """The visible CUDA devices, at least 1: the default shard and replica
+    count, as the reference's default mesh is ``len(jax.devices())``."""
+    return max(1, torch.cuda.device_count())

@@ -58,7 +58,8 @@ class RefreshConfig:
     k_neg: int = 30
     use_routing: bool = True
     use_neighborhood: bool = True
-    data_parallel: bool = False     # the reference's multi-device fit
+    data_parallel: bool = False     # fit's data-parallel step (replicas =
+                                    # the visible CUDA devices)
     max_sample: int = 20_000        # live-row cap for the Lloyd stage
     seed: int = 0
     verbose: bool = False
@@ -98,10 +99,6 @@ def refresh_quantizer(base: BaseSegment, model: pqbase.QuantizerModel, *,
       reconstruction error over live rows before and after.
     """
     cfg = cfg if cfg is not None else RefreshConfig()
-    if cfg.data_parallel:
-        raise NotImplementedError(
-            "refresh_quantizer: data_parallel=True needs the data-parallel "
-            "fit, ROADMAP.md queue A item 14 (sharded engines)")
     dev = resolve_device(device)
     model = model.to(dev)
     n, d = base.n, base.dim
@@ -146,6 +143,7 @@ def refresh_quantizer(base: BaseSegment, model: pqbase.QuantizerModel, *,
             n_hops=cfg.n_hops, k_pos=cfg.k_pos, k_neg=cfg.k_neg,
             use_routing=cfg.use_routing,
             use_neighborhood=cfg.use_neighborhood,
+            data_parallel=cfg.data_parallel,
             log_every=max(cfg.steps // 4, 1))
         state = T.fit(qcfg, tcfg, xr, base.graph, seed=cfg.seed,
                       params=Q.init_params(qcfg, codebooks),

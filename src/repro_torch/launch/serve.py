@@ -5,7 +5,8 @@
         [--codes u8|fs4] [--h 32] [--entries 8] [--prune-eps 0.1] \
         [--deadline-ms 20] [--degrade-level 2] [--chaos io=0.05] \
         [--churn 0.1] [--churn-rounds 4] [--refresh-every 2] \
-        [--cache-mb 4] [--io-threads 4] [--port-stdin] [--device cpu]
+        [--cache-mb 4] [--io-threads 4] [--shards 4] [--port-stdin] \
+        [--device cpu]
 
 Port of ``repro/launch/serve.py``; ``--device`` (default ``cuda``; without
 CUDA the driver raises unless given ``--device cpu``) is the port's own.
@@ -18,9 +19,14 @@ answers newline-delimited query vectors on stdin.
 
 Scenarios (``search/engine.py``): ``memory`` (codes + PG resident, ADC
 routing only), ``hybrid`` (DiskANN-style: ADC routing + exact rerank from
-"SSD" vectors; the default) and ``sharded`` (the graph-free exhaustive
-scan with a local rerank, on ONE shard; ``--chaos dead=0`` drops it from
-the merge) and ``streaming`` (live serving under churn through
+"SSD" vectors; the default), ``sharded`` (the graph-free exhaustive scan
+with a local rerank over ``--shards`` shards; ``--chaos dead=0`` drops
+shard 0 from the merge), ``sharded-graph`` (graph-routed over ``--shards``
+shards, each with its own Vamana subgraph, cached as
+``<ckpt-dir>/graph_part{S}.npz`` in the reference's keys, and a local
+exact rerank; ``--chaos dead=1,straggler=2,straggler_ms=50`` with
+``--deadline-ms`` drills dead shards and the quorum merge) and
+``streaming`` (live serving under churn through
 ``index.StreamingEngine``: the dataset's tail is held out as an insert
 stream, ``--churn-rounds`` rounds of insert / delete / query run against the
 mutable index, scored against the LIVE corpus, and a consolidation folds the
@@ -35,8 +41,10 @@ round reads its records from it through a hot-vertex cache of
 slow_read=ms,corrupt_record,io=p`` adds read latency, a silently flipped
 record byte and retried transient read faults; a second ``[serve] disk
 io:`` line reports the cache hit rate, bytes read, reads, I/O wait and
-retries). ``sharded-graph`` is not ported yet and exits with the queue
-item that holds it.
+retries).
+
+``--shards`` (default: the visible CUDA devices) is the reference's mesh
+size; on one card the shards are row blocks of the one device.
 
 ``--entries S`` / ``--prune-eps ε`` switch on adaptive routing (DESIGN.md
 §11); ``--deadline-ms`` becomes a ``max_rounds`` budget through
@@ -58,26 +66,52 @@ import torch
 from repro_torch.core import quantizer as Q
 from repro_torch.core.trainer import to_model
 from repro_torch.data import load_dataset
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, visible_cuda_devices
 from repro_torch.dist import checkpoint as ckpt
 from repro_torch.dist.fault import ChaosPlan, InjectedFailure, corrupt_snapshot
 from repro_torch.dist.retry import RetryPolicy
 from repro_torch.graphs import knn_ids
+from repro_torch.graphs.partition import PartitionedGraph, build_partitioned_vamana
 from repro_torch.launch.train import build_or_load_graph
 from repro_torch.pq import base as pqbase
 from repro_torch.pq import pack
 from repro_torch.search.degrade import DegradationPolicy
-from repro_torch.search.engine import HybridEngine, InMemoryEngine, ShardedEngine
+from repro_torch.search.engine import (HybridEngine, InMemoryEngine, ShardedEngine,
+                                       ShardedGraphEngine)
 from repro_torch.search.metrics import live_ground_truth, measure_qps, recall_at_k
 
 SCENARIOS = ("hybrid", "memory", "sharded", "sharded-graph", "streaming", "disk")
-# scenarios of the reference that wait for later slices (ROADMAP.md queue A)
-NOT_PORTED = {"sharded-graph": "queue A item 14 (sharded engines)"}
 
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def build_or_load_partitioned_graph(generator: torch.Generator, x: torch.Tensor,
+                                    cache_path: str, n_shards: int, r: int,
+                                    l: int, batch: int = 1024) -> PartitionedGraph:
+    """Per-shard Vamana subgraphs over ``x`` (on x's device), read from
+    ``cache_path`` when it holds a partition into ``n_shards``, else built
+    and written there (the reference's ``.npz`` keys, so either package
+    reads the other's file)."""
+    if cache_path and os.path.exists(cache_path):
+        z = np.load(cache_path)
+        if int(z["n_shards"]) == n_shards:
+            print(f"[serve] partition loaded from {cache_path}")
+            return PartitionedGraph(
+                neighbors=torch.from_numpy(z["neighbors"].astype(np.int32)).to(x.device),
+                medoids=torch.from_numpy(z["medoids"].astype(np.int32)).to(x.device),
+                n=int(z["n"]))
+    t0 = time.perf_counter()
+    pg = build_partitioned_vamana(x, n_shards, generator=generator, r=r, l=l,
+                                  batch=batch, device=x.device)
+    print(f"[serve] partition built in {time.perf_counter() - t0:.1f} s")
+    if cache_path:
+        os.makedirs(os.path.dirname(cache_path) or ".", exist_ok=True)
+        np.savez(cache_path, neighbors=pg.neighbors.cpu().numpy(),
+                 medoids=pg.medoids.cpu().numpy(), n=pg.n, n_shards=n_shards)
+    return pg
 
 
 def calibrate_max_rounds(engine, queries: torch.Tensor, deadline_s: float,
@@ -124,13 +158,25 @@ def build_engine(args, ds, model, plan: Optional[ChaosPlan] = None,
     else:
         lut_fn = lambda q: pqbase.build_lut(model, q)
     dev = ds.base.device
+    shards = args.shards or visible_cuda_devices()
     if args.scenario == "sharded":  # graph-free scatter-gather scan
-        engine = ShardedEngine(codes, lut_fn, vectors=ds.base, device=dev)
-        print(f"[serve] sharded over {engine.n_shards} device shard(s)")
+        engine = ShardedEngine(codes, lut_fn, vectors=ds.base, device=dev,
+                               n_shards=shards)
+        print(f"[serve] sharded over {engine.n_shards} shard(s)")
+        return engine
+    if args.scenario == "sharded-graph":  # graph-routed scatter-gather
+        pg = build_or_load_partitioned_graph(
+            torch.Generator().manual_seed(0), ds.base,
+            f"{args.ckpt_dir}/graph_part{shards}.npz", shards, args.graph_r,
+            args.graph_l, args.graph_batch)
+        engine = ShardedGraphEngine(pg, codes, lut_fn, vectors=ds.base,
+                                    device=dev, n_shards=shards)
+        print(f"[serve] graph-routed over {engine.n_shards} shard(s), "
+              f"{pg.n_local} rows/shard, R={pg.degree}")
         return engine
     graph = build_or_load_graph(torch.Generator().manual_seed(0), ds.base,
                                 f"{args.ckpt_dir}/graph_base.npz",
-                                args.graph_r, args.graph_l)
+                                args.graph_r, args.graph_l, args.graph_batch)
     if args.scenario == "disk":
         return build_disk_engine(args, ds, model, graph, codes, lut_fn, plan, retry)
     if args.scenario == "hybrid":
@@ -191,7 +237,7 @@ def run_streaming(args, model, ds, plan: Optional[ChaosPlan] = None) -> dict:
     base_x, stream = ds.base[:n0], ds.base[n0:]
     graph = build_or_load_graph(torch.Generator().manual_seed(0), base_x,
                                 f"{args.ckpt_dir}/graph_stream{n0}.npz",
-                                args.graph_r, args.graph_l)
+                                args.graph_r, args.graph_l, args.graph_batch)
     seg = BaseSegment(graph=graph, codes=encode_codes(model, base_x, args.codes),
                       vectors=base_x, layout=args.codes)
     cap = max(len(stream), 1)
@@ -335,10 +381,6 @@ def serve_stdin(args, engine, dim: int, device) -> None:
 def run(args) -> dict:
     """The one-shot evaluation (or the stdin loop). Returns the engine, its
     search kwargs and the timed result."""
-    if args.scenario in NOT_PORTED:
-        raise SystemExit(f"--scenario {args.scenario} is not ported to the "
-                         f"PyTorch package yet: {NOT_PORTED[args.scenario]} "
-                         f"in ROADMAP.md")
     dev = resolve_device(args.device)
     plan = ChaosPlan.parse(args.chaos) if args.chaos else None
     retry = None
@@ -378,10 +420,19 @@ def run(args) -> dict:
                                   k=args.k, **skw)
         skw["max_rounds"] = mr
         print(f"[serve] deadline {args.deadline_ms}ms → max_rounds={mr}")
-    if plan is not None and isinstance(engine, ShardedEngine):
+    if plan is not None and isinstance(engine, (ShardedEngine,
+                                                ShardedGraphEngine)):
         skw["alive"] = list(plan.alive(engine.n_shards))
         dead = engine.n_shards - sum(skw["alive"])
-        print(f"[serve] chaos: {dead}/{engine.n_shards} shard(s) dead")
+        msg = f"[serve] chaos: {dead}/{engine.n_shards} shard(s) dead"
+        if isinstance(engine, ShardedGraphEngine):
+            skw["shard_latency_s"] = list(plan.latencies(engine.n_shards))
+            if args.deadline_ms:
+                skw["deadline_s"] = args.deadline_ms / 1e3
+                msg += (f", stragglers {list(plan.straggler_shards)} at "
+                        f"{plan.straggler_latency_s*1e3:.0f}ms vs "
+                        f"{args.deadline_ms}ms deadline quorum")
+        print(msg)
 
     gt, _ = knn_ids(ds.base, ds.queries, args.k)
     qps, res = measure_qps(lambda q: engine.search(q, k=args.k, **skw), ds.queries)
@@ -424,6 +475,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--k", type=int, default=10)
     ap.add_argument("--graph-r", type=int, default=24)
     ap.add_argument("--graph-l", type=int, default=48)
+    ap.add_argument("--graph-batch", type=int, default=1024,
+                    help="nodes per batched Vamana insert round of a graph built "
+                    "here (the reference builder's 1024)")
     ap.add_argument("--churn", type=float, default=0.1,
                     help="streaming scenario: fraction of the dataset held "
                     "out as the insert stream (an equal count of base rows "
@@ -457,6 +511,10 @@ def parser() -> argparse.ArgumentParser:
                     "(half BFS-pinned from the medoid, half LRU)")
     ap.add_argument("--io-threads", type=int, default=4,
                     help="disk scenario: segment reader threads")
+    ap.add_argument("--shards", type=int, default=0,
+                    help="sharded scenarios: shard count, the reference's "
+                    "mesh size (default 0: the visible CUDA devices); on one "
+                    "card the shards are row blocks of the one device")
     ap.add_argument("--port-stdin", action="store_true",
                     help="read whitespace-separated query vectors on stdin")
     ap.add_argument("--device", default="cuda",

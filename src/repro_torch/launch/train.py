@@ -43,15 +43,16 @@ from repro_torch.search.metrics import recall_at_k
 
 
 def build_or_load_graph(generator: torch.Generator, x: torch.Tensor,
-                        cache_path: str, r: int, l: int) -> Graph:
+                        cache_path: str, r: int, l: int, batch: int = 1024) -> Graph:
     """The Vamana graph over ``x`` (on x's device), read from
-    ``cache_path`` when it exists, else built and written there (the
-    reference's ``.npz`` keys, so the two drivers share a cache)."""
+    ``cache_path`` when it exists, else built ``batch`` nodes a round and
+    written there (the reference's ``.npz`` keys, so the two drivers share
+    a cache)."""
     if cache_path and os.path.exists(cache_path):
         z = np.load(cache_path)
         return Graph(neighbors=torch.from_numpy(z["neighbors"].astype(np.int32)).to(x.device),
                      medoid=torch.tensor(int(z["medoid"]), device=x.device))
-    g = build_vamana(x, generator=generator, r=r, l=l, device=x.device)
+    g = build_vamana(x, generator=generator, r=r, l=l, batch=batch, device=x.device)
     if cache_path:
         os.makedirs(os.path.dirname(cache_path) or ".", exist_ok=True)
         np.savez(cache_path, neighbors=g.neighbors.cpu().numpy(),
@@ -73,7 +74,7 @@ def run(args) -> dict:
     x = ds.train
     graph_gen = lambda: torch.Generator().manual_seed(args.seed)
     graph = build_or_load_graph(graph_gen(), x, os.path.join(args.ckpt_dir, "graph.npz"),
-                                args.graph_r, args.graph_l)
+                                args.graph_r, args.graph_l, args.graph_batch)
 
     cfg = Q.RPQConfig(dim=x.shape[1], m=args.m, k=args.k)
     tcfg = T.TrainConfig(steps=args.steps, refresh_every=args.refresh_every,
@@ -114,7 +115,7 @@ def run(args) -> dict:
     codes = pqbase.encode(model, ds.base)
     base_graph = (graph if ds.base.shape[0] == x.shape[0] else build_or_load_graph(
         graph_gen(), ds.base, os.path.join(args.ckpt_dir, "graph_base.npz"),
-        args.graph_r, args.graph_l))
+        args.graph_r, args.graph_l, args.graph_batch))
     engine = HybridEngine(base_graph, codes, lambda q: pqbase.build_lut(model, q),
                           vectors=ds.base, device=dev)
     gt, _ = knn_ids(ds.base, ds.queries, 10)
@@ -136,6 +137,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--refresh-every", type=int, default=100)
     ap.add_argument("--graph-r", type=int, default=24)
     ap.add_argument("--graph-l", type=int, default=48)
+    ap.add_argument("--graph-batch", type=int, default=1024,
+                    help="nodes per batched Vamana insert round of a graph built "
+                    "here (the reference builder's 1024)")
     ap.add_argument("--beam", type=int, default=48)
     ap.add_argument("--ckpt-dir", default="runs/rpq")
     ap.add_argument("--checkpoint-every", type=int, default=50)

@@ -22,6 +22,10 @@ lane's own step count.
 neighbors deduplicated and scored in one call (DESIGN.md §9); ``expand=1``
 keeps the classic semantics, in-row duplicates included.
 
+``lanes_per_query=L`` runs L lanes per query (lane ``q·L + l``) against Q
+rows of LUTs: the sharded engines' S shard-local beams of one query, over
+the partition's block-diagonal graph, still one distance call a round.
+
 ``beam_search_trace`` also records the ranked beam after every round, the
 paper's Definition 6 routing features (RPQ training's ``sample_routing``).
 
@@ -174,7 +178,8 @@ def beam_search(neighbors: torch.Tensor, entry, qdatas: torch.Tensor,
                 lb_dist_fn: Optional[Callable] = None, m_prefix: int = 0,
                 m_total: int = 0, prune_eps: float = 0.0,
                 lb_scale_fn: Optional[Callable] = None,
-                max_rounds=None, max_n_dist=None) -> SearchResult:
+                max_rounds=None, max_n_dist=None,
+                lanes_per_query: int = 1) -> SearchResult:
     """Batched beam search.
 
     Args:
@@ -199,12 +204,19 @@ def beam_search(neighbors: torch.Tensor, entry, qdatas: torch.Tensor,
                  (``make_lb_scale_fn``), qdatas -> (Q,); default M/m′.
       max_rounds / max_n_dist: per-call budgets (rounds; full-LUT-equivalent
                  distance evaluations). ``None`` adds no check.
+      lanes_per_query: L beam lanes per row of ``qdatas``, query-major (lane
+                 ``q·L + l``): the sharded engines' S shards of each query
+                 (``entry`` then holds Q·L rows). Each distance call still
+                 scores the whole batch at once: the (Q·L, W) frontier goes
+                 to ``dist_fn`` as (Q, L·W) against the unchanged (Q, ...)
+                 qdatas. 1 is the classic beam.
     """
     return _beam(neighbors, entry, qdatas, dist_fn, h=h, max_steps=max_steps,
                  expand=expand, trace_len=0, tombstones=tombstones,
                  lb_dist_fn=lb_dist_fn, m_prefix=m_prefix, m_total=m_total,
                  prune_eps=prune_eps, lb_scale_fn=lb_scale_fn,
-                 max_rounds=max_rounds, max_n_dist=max_n_dist)[0]
+                 max_rounds=max_rounds, max_n_dist=max_n_dist,
+                 lanes_per_query=lanes_per_query)[0]
 
 
 def beam_search_trace(neighbors: torch.Tensor, entry, qdatas: torch.Tensor,
@@ -232,12 +244,26 @@ def beam_search_trace(neighbors: torch.Tensor, entry, qdatas: torch.Tensor,
     return Trace(tbi.to(torch.int32), tbd, tbv, res)
 
 
+def _per_lane(fn: Callable, nq_data: int) -> Callable:
+    """``fn`` over (Q·L, W) lane ids, query-major, as ONE call of (Q, L·W)
+    ids against the Q rows of qdatas."""
+    def lane_fn(qdatas, ids):
+        return fn(qdatas, ids.reshape(nq_data, -1)).reshape(ids.shape[0], -1)
+    return lane_fn
+
+
 def _beam(neighbors, entry, qdatas, dist_fn, *, h, max_steps, expand,
           trace_len, tombstones=None, lb_dist_fn=None, m_prefix=0, m_total=0,
-          prune_eps=0.0, lb_scale_fn=None, max_rounds=None, max_n_dist=None):
+          prune_eps=0.0, lb_scale_fn=None, max_rounds=None, max_n_dist=None,
+          lanes_per_query=1):
     n, r = neighbors.shape
     dev = neighbors.device
     nq = (qdatas.lut if isinstance(qdatas, QuantizedLUT) else qdatas).shape[0]
+    if lanes_per_query > 1:
+        dist_fn = _per_lane(dist_fn, nq)
+        if lb_dist_fn is not None:
+            lb_dist_fn = _per_lane(lb_dist_fn, nq)
+        nq = nq * lanes_per_query
     e = max(1, min(expand, h))
     nwords = (n + 31) // 32 + 1
     entries = _normalize_entries(entry, nq, dev)
@@ -254,10 +280,16 @@ def _beam(neighbors, entry, qdatas, dist_fn, *, h, max_steps, expand,
                / torch.tensor(float(m_prefix), dtype=torch.float32, device=dev))
         gate = (cal * torch.tensor(1.0 + prune_eps, dtype=torch.float32,
                                    device=dev)).reshape(-1, 1)
+        if lanes_per_query > 1 and gate.shape[0] > 1:   # one row per lane
+            gate = gate.repeat_interleave(lanes_per_query, dim=0)
 
     ids = torch.full((nq, h), n, dtype=torch.int64, device=dev)
     dists = torch.full((nq, h), INF, dtype=torch.float32, device=dev)
     exp = torch.ones((nq, h), dtype=torch.bool, device=dev)
+    # one bitset over all N ids per lane: with the sharded engines' S lanes
+    # per query over S·n_local rows it is S·Q × S·n_local/32 words, 500 MB at
+    # Q=1000, S=4 and 1M rows (a shard's beam never sets a bit outside its
+    # block; the reference keeps n_local bits per shard)
     visited = torch.zeros((nq, nwords), dtype=torch.int32, device=dev)
     if s == 1:
         # the classic single-entry init, op for op (bit-identity contract)

@@ -1,21 +1,33 @@
-"""Serving engines (paper §7): in-memory, SSD-hybrid (DiskANN) and the
-exhaustive scatter-gather scan.
+"""Serving engines (paper §7): in-memory, SSD-hybrid (DiskANN), and the two
+sharded scatter-gather scenarios (exhaustive scan and graph-routed).
 
-Port of ``repro/search/engine.py`` with the default ``search()`` arguments.
-The graph engines route with PQ-ADC distances through the fused hop-ADC
-kernel, one launch per beam round for the whole batch. They accept any
-quantizer exposing the (codes, lut_fn) protocol (``pq.base.QuantizerModel``
-of classic PQ, OPQ or the learned RPQ).
+Port of ``repro/search/engine.py``. The graph engines route with PQ-ADC
+distances through the fused hop-ADC kernel, one launch per beam round for
+the whole batch. They accept any quantizer exposing the (codes, lut_fn)
+protocol (``pq.base.QuantizerModel`` of classic PQ, OPQ or the learned RPQ).
 
 * :class:`InMemoryEngine` — codes + PG resident; next-hop selection and the
   final top-k use ONLY PQ distances. Memory = code bytes + graph.
 * :class:`HybridEngine` — DiskANN: codes resident; full vectors + PG "on
   SSD". Routing uses ADC; every expansion costs one modeled SSD read; the
   final candidates are re-ranked with exact distances.
-* :class:`ShardedEngine` — the exhaustive ADC scan with a local top-k (or
-  an ADC shortlist and exact rerank), merged by ``dist.fault.partial_merge``
-  so a dead shard degrades the answer instead of failing it. One shard:
-  the JAX engine on a one-device mesh.
+* :class:`ShardedEngine` — the exhaustive ADC scan over S shards with a
+  local top-k per shard (or an ADC shortlist and exact rerank), merged by
+  ``dist.fault.partial_merge`` so a dead shard degrades the answer instead
+  of failing it.
+* :class:`ShardedGraphEngine` — graph ROUTING over S shards (DESIGN.md §6):
+  each shard owns a contiguous row range and an independent Vamana
+  subgraph (``graphs/partition.py``), every query's beam runs on every
+  shard, optionally exact-reranks against the shard's vectors, and the
+  shard shortlists merge as in the scan engine, under an optional quorum
+  deadline (``dist.fault.resolve_quorum``).
+
+The reference runs its shards as a device mesh under ``shard_map``; here
+the S shards are row blocks of one device. The scan engine makes one bulk
+ADC launch over all rows and takes each shard's top-k on a (Q·S, n_local)
+view; the graph engine routes the S·Q shard-local beams as one lockstep
+beam over the partition's block-diagonal graph, one distance launch a
+round. Both give the reference's per-shard answers.
 
 Every engine takes either layout, and the type of ``lut_fn``'s return
 decides which: (N, M) byte codes with (Q, M, K) f32 LUTs (u8), or
@@ -25,16 +37,15 @@ The engines hold their state on ``device`` (default ``cuda``). The graph
 engines thread the reference's adaptive-routing and budget knobs
 (DESIGN.md §11, §13): ``entries=S`` seeds each beam with S entry points
 from a PQ-hash coarse index over the resident codes (``search/seed.py``,
-built lazily on the first seeded search), ``prune_eps=ε`` gates each
-round's full scoring behind a partial-LUT lower bound over ``m_prefix``
-subspaces, ``max_rounds`` / ``max_n_dist`` bound the work per call, and
-``HybridEngine.search(rerank=)`` re-ranks a count of candidates, or none
-(the degradation ladder's L4). ``entries=1, prune_eps=0`` and no budget
-are bit-identical to the classic beam. The streaming engine
-(``index/engine.py``) reuses ``_bulk_adc``, ``_prune_cfg`` and
-``topk_lower``. Still to port: HNSW descent (``entry_fn``, with
-``graphs/hnsw.py``), more than one shard and the graph-routed sharded
-engine.
+built lazily on the first seeded search; per shard for the sharded
+engine), ``prune_eps=ε`` gates each round's full scoring behind a
+partial-LUT lower bound over ``m_prefix`` subspaces, ``max_rounds`` /
+``max_n_dist`` bound the work per call, and ``HybridEngine.search(rerank=)``
+re-ranks a count of candidates, or none (the degradation ladder's L4).
+``entries=1, prune_eps=0`` and no budget are bit-identical to the classic
+beam. The streaming engine (``index/engine.py``) reuses ``_bulk_adc``,
+``_prune_cfg`` and ``topk_lower``. Still to port: HNSW descent
+(``entry_fn``, with ``graphs/hnsw.py``).
 """
 
 from __future__ import annotations
@@ -44,10 +55,11 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, visible_cuda_devices
 from repro_torch.dist import retry as _retry
-from repro_torch.dist.fault import partial_merge
+from repro_torch.dist.fault import partial_merge, resolve_quorum
 from repro_torch.graphs.adjacency import Graph
+from repro_torch.graphs.partition import PartitionedGraph, block_diagonal
 from repro_torch.kernels import ops as kops
 from repro_torch.pq.pack import QuantizedLUT, unpack_codes
 from repro_torch.search import beam
@@ -133,12 +145,6 @@ class _GraphRouting:
                m_prefix, max_rounds, max_n_dist) -> SearchResult:
         """The beam over the graph, with ``n_dist`` counting the seed
         probe's scored candidates."""
-        packed = _is_packed(luts)
-        dist_fn = beam.make_adc_dist_fn(self._codes_p, packed=packed)
-        mp, mt = _prune_cfg(luts, prune_eps, m_prefix)
-        lb_fn = (beam.make_adc_dist_fn(self._codes_p, packed=packed, m_prefix=mp)
-                 if mp else None)
-        cal_fn = beam.make_lb_scale_fn(packed=packed, m_prefix=mp) if mp else None
         seed_cost = 0
         if entries > 1:
             ix = self._seed_index(luts)
@@ -146,15 +152,33 @@ class _GraphRouting:
             seed_cost = ix.n_candidates
         else:
             entry = self.graph.medoid
-        res = beam.beam_search(self.graph.neighbors, entry, luts, dist_fn, h=h,
-                               max_steps=max_steps, expand=expand,
-                               lb_dist_fn=lb_fn, m_prefix=mp, m_total=mt,
-                               prune_eps=prune_eps if mp else 0.0,
-                               lb_scale_fn=cal_fn, max_rounds=max_rounds,
-                               max_n_dist=max_n_dist)
-        if seed_cost:
-            res.n_dist = res.n_dist + seed_cost
-        return res
+        return _adc_beam(self.graph.neighbors, self._codes_p, entry, luts,
+                         seed_cost, h=h, max_steps=max_steps, expand=expand,
+                         prune_eps=prune_eps, m_prefix=m_prefix,
+                         max_rounds=max_rounds, max_n_dist=max_n_dist)
+
+
+def _adc_beam(neighbors, codes_p, entry, luts, seed_cost: int, *, h, max_steps,
+              expand, prune_eps, m_prefix, max_rounds, max_n_dist,
+              lanes_per_query: int = 1) -> SearchResult:
+    """One ADC beam search over sentinel-padded ``codes_p`` with the hop
+    pruning and budget knobs; ``seed_cost`` (the seed probe's scored
+    candidates) is added to ``n_dist``."""
+    packed = _is_packed(luts)
+    dist_fn = beam.make_adc_dist_fn(codes_p, packed=packed)
+    mp, mt = _prune_cfg(luts, prune_eps, m_prefix)
+    lb_fn = beam.make_adc_dist_fn(codes_p, packed=packed, m_prefix=mp) if mp else None
+    cal_fn = beam.make_lb_scale_fn(packed=packed, m_prefix=mp) if mp else None
+    res = beam.beam_search(neighbors, entry, luts, dist_fn, h=h,
+                           max_steps=max_steps, expand=expand,
+                           lb_dist_fn=lb_fn, m_prefix=mp, m_total=mt,
+                           prune_eps=prune_eps if mp else 0.0,
+                           lb_scale_fn=cal_fn, max_rounds=max_rounds,
+                           max_n_dist=max_n_dist,
+                           lanes_per_query=lanes_per_query)
+    if seed_cost:
+        res.n_dist = res.n_dist + seed_cost
+    return res
 
 
 @dataclasses.dataclass
@@ -277,86 +301,362 @@ def _exact_rerank(vec_p: torch.Tensor, queries: torch.Tensor,
     return cand.gather(1, order[:, :k]).to(torch.int32), vals[:, :k]
 
 
+
+
 # ==========================================================================
-# Scatter-gather scan (one shard): the per-shard bodies of the JAX engine
+# Sharded scatter-gather: S shards as row blocks of one device. Shard s owns
+# rows [s·n_local, (s+1)·n_local) of the row-padded codes (and vectors);
+# every per-shard result is the reference's shard_map body's, stacked on a
+# leading (S,) axis.
 # ==========================================================================
 
-def _local_adc_topk(codes: torch.Tensor, luts, *, k: int
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One shard's scatter half: ADC-scan its rows, return the LOCAL top-k
-    (Q, k) ids and distances (one shard: local ids are global)."""
-    vals, ids = topk_lower(_bulk_adc(codes, luts), k)
-    return ids, vals
+def _stack_rows(x: torch.Tensor, n_shards: int, n_local: int) -> torch.Tensor:
+    """(N, ...) global rows → (S, n_local, ...) shard-stacked, zero-padded."""
+    return kops.pad_rows_to_multiple(x, n_shards).reshape(
+        (n_shards, n_local) + tuple(x.shape[1:]))
 
 
-def _local_adc_serve(codes: torch.Tensor, vectors: torch.Tensor, luts,
-                     queries: torch.Tensor, *, k: int, shortlist: int
+def _by_shard(t: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """(Q·S, ...) query-major lanes (lane q·S + s) → (S, Q, ...)."""
+    return t.reshape((-1, n_shards) + tuple(t.shape[1:])).transpose(0, 1)
+
+
+def _lane_offsets(q: int, n_shards: int, n_local: int, device) -> torch.Tensor:
+    """(Q·S, 1) first global row of each lane's shard: s·n_local."""
+    off = torch.arange(n_shards, device=device) * n_local
+    return off.repeat(q)[:, None]
+
+
+def _shard_scan(codes: torch.Tensor, luts, n_shards: int,
+                n_valid: Optional[int]) -> torch.Tensor:
+    """ONE bulk ADC launch over every shard's rows, the padding rows (global
+    row ≥ ``n_valid``) at +inf, viewed as (Q·S, n_local): row q·S + s is
+    shard s's block for query q. Each distance depends only on its (query,
+    row), so these are the floats of S per-shard scans."""
+    d = _bulk_adc(codes, luts)
+    if n_valid is not None and n_valid < d.shape[1]:
+        pad = torch.arange(d.shape[1], device=d.device) >= n_valid
+        d = d.masked_fill(pad, float("inf"))
+    return d.reshape(d.shape[0] * n_shards, -1)
+
+
+def sharded_adc_scan(codes: torch.Tensor, luts, *, n_shards: int, k: int,
+                     n_valid: Optional[int] = None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Scatter half with DiskANN-style local refinement: ADC shortlist →
-    exact rerank against the shard's vector rows → LOCAL top-k."""
-    _, cand = topk_lower(_bulk_adc(codes, luts), shortlist)   # (Q, S)
-    exact = ((vectors[cand] - queries[:, None, :]) ** 2).sum(dim=-1)
+    """Scatter: row-stacked (S·n_local, M|Mb) codes × (Q, ...) LUTs → per-
+    shard LOCAL top-k as (S, Q, k) GLOBAL ids + ADC distances (ties to the
+    lower row, as ``lax.top_k``). ``n_valid`` = real rows (masks the last
+    shard's padding)."""
+    d = _shard_scan(codes, luts, n_shards, n_valid)
+    q, n_local = d.shape[0] // n_shards, d.shape[1]
+    vals, ids = topk_lower(d, k)
+    ids = ids + _lane_offsets(q, n_shards, n_local, d.device)
+    return _by_shard(ids, n_shards), _by_shard(vals, n_shards)
+
+
+def sharded_adc_serve(codes: torch.Tensor, vectors: torch.Tensor, luts,
+                      queries: torch.Tensor, *, n_shards: int, k: int,
+                      shortlist: int, n_valid: Optional[int] = None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scatter with local exact rerank: each shard's ADC shortlist of
+    ``min(shortlist, n_local)`` is re-ranked against its own rows of the
+    row-stacked (S·n_local, D) ``vectors`` → (S, Q, k) global ids + exact
+    distances."""
+    d = _shard_scan(codes, luts, n_shards, n_valid)
+    q, n_local = d.shape[0] // n_shards, d.shape[1]
+    _, cand = topk_lower(d, min(shortlist, n_local))
+    cand = cand + _lane_offsets(q, n_shards, n_local, d.device)   # global rows
+    cv = vectors[cand].reshape(q, -1, vectors.shape[1])          # (Q, S·sl, D)
+    exact = ((cv - queries[:, None, :]) ** 2).sum(dim=-1).reshape(cand.shape)
+    if n_valid is not None:
+        exact = torch.where(cand < n_valid, exact, float("inf"))
     vals, order = torch.sort(exact, dim=1, stable=True)
-    return cand.gather(1, order[:, :k]), vals[:, :k]
+    gids = cand.gather(1, order[:, :k])
+    return _by_shard(gids, n_shards), _by_shard(vals[:, :k], n_shards)
+
+
+def merge_shard_topk(gids: torch.Tensor, dists: torch.Tensor, k: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gather: (S, Q, k_s) per-shard shortlists → global (Q, k) top-k, ties
+    to the earlier shard and slot. The all-shards-alive merge;
+    ``ShardedEngine`` merges with ``dist.fault.partial_merge`` to tolerate
+    dead shards."""
+    q = gids.shape[1]
+    vals, order = topk_lower(dists.transpose(0, 1).reshape(q, -1), k)
+    return gids.transpose(0, 1).reshape(q, -1).gather(1, order), vals
+
+
+def _zero_counters(q: int, device) -> dict:
+    zeros = torch.zeros(q, dtype=torch.int32, device=device)
+    return dict(hops=zeros, n_dist=zeros.clone(), rounds=zeros.clone(),
+                truncated=torch.zeros(q, dtype=torch.bool, device=device))
 
 
 @dataclasses.dataclass
 class ShardedEngine:
-    """Scatter-gather serving by exhaustive ADC scan, one shard.
+    """Scatter-gather serving by exhaustive ADC scan over ``n_shards``
+    shards (default: the visible CUDA devices, as the reference's default
+    mesh).
 
-    A query batch builds its LUTs, the shard scans every row and answers a
-    local top-k — or, with ``vectors``, an ADC shortlist of
-    ``shortlist_mult · k`` re-ranked exactly — and ``partial_merge`` merges
-    the shard shortlists, dropping shards reported dead via ``alive``.
+    The shards are contiguous row blocks of one device: a query batch
+    builds its LUTs, one scan covers every shard's rows, and each shard
+    answers a local top-k — or, with ``vectors``, an ADC shortlist of
+    ``shortlist_mult · k`` re-ranked exactly against its own rows — and
+    ``partial_merge`` merges the shard shortlists, dropping shards reported
+    dead via ``alive``.
     """
     codes: torch.Tensor               # (N, M) u8 codes, or fs4 (N, ceil(M/2))
     lut_fn: Callable                  # (Q, D) queries -> LUTs or QuantizedLUT
     vectors: Optional[torch.Tensor] = None   # (N, D): enables local rerank
     shortlist_mult: int = 4           # rerank shortlist = mult × k
     device: object = None             # default cuda
-    n_shards: int = dataclasses.field(default=1, init=False)
+    n_shards: Optional[int] = None    # default: visible CUDA devices
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        self.codes = self.codes.to(self.device).contiguous()
-        self.n = int(self.codes.shape[0])
+        if self.n_shards is None:
+            self.n_shards = visible_cuda_devices()
+        codes = self.codes.to(self.device)
+        self.n = int(codes.shape[0])
+        self._codes_bytes = codes.numel() * codes.element_size()
+        self.codes = kops.pad_rows_to_multiple(codes, self.n_shards).contiguous()
+        self.n_local = self.codes.shape[0] // self.n_shards
+        self._vec_bytes = 0
         if self.vectors is not None:
-            self.vectors = self.vectors.to(self.device, torch.float32)
+            vec = self.vectors.to(self.device, torch.float32)
+            self._vec_bytes = vec.numel() * 4
+            self.vectors = kops.pad_rows_to_multiple(vec, self.n_shards)
 
     def search(self, queries: torch.Tensor, *, k: int = 10,
                alive: Optional[Sequence[bool]] = None,
                h: Optional[int] = None, expand: Optional[int] = None,
                entries: Optional[int] = None, prune_eps: Optional[float] = None,
                m_prefix: Optional[int] = None) -> SearchResult:
-        """Exhaustive scan. ``h``, ``expand``, ``entries``, ``prune_eps``
-        and ``m_prefix`` are accepted for the engine protocol (one
-        degradation policy drives every engine) and ignored: there is no
-        beam to seed or prune."""
+        """Exhaustive sharded scan. ``h``, ``expand``, ``entries``,
+        ``prune_eps`` and ``m_prefix`` are accepted for the engine protocol
+        (one degradation policy drives every engine) and ignored: there is
+        no beam to seed or prune."""
         del h, expand, entries, prune_eps, m_prefix
         queries = torch.atleast_2d(queries.to(self.device, torch.float32))
-        kk = min(k, self.n)
+        kk = min(k, self.n_local)
         luts = self.lut_fn(queries)
         if self.vectors is None:
-            gids, dists = _local_adc_topk(self.codes, luts, k=kk)
+            gids, dists = sharded_adc_scan(self.codes, luts, n_shards=self.n_shards,
+                                           k=kk, n_valid=self.n)
         else:
-            gids, dists = _local_adc_serve(
-                self.codes, self.vectors, luts, queries, k=kk,
-                shortlist=min(self.shortlist_mult * kk, self.n))
+            gids, dists = sharded_adc_serve(
+                self.codes, self.vectors, luts, queries, n_shards=self.n_shards,
+                k=kk, shortlist=self.shortlist_mult * kk, n_valid=self.n)
         if alive is None:
             alive = [True] * self.n_shards
-        merged = partial_merge([gids], [dists], alive, k)
+        merged = partial_merge(list(gids), list(dists), alive, k)
         q = queries.shape[0]
-        # n_dist counts the rows each alive shard scanned
-        scanned = self.n * sum(bool(a) for a in alive)
-        zeros = torch.zeros(q, dtype=torch.int32, device=self.device)
-        return SearchResult(merged.ids, merged.dists, hops=zeros,
-                            n_dist=torch.full((q,), scanned, dtype=torch.int32,
-                                              device=self.device),
-                            rounds=zeros.clone(),
-                            truncated=torch.zeros(q, dtype=torch.bool,
-                                                  device=self.device),
-                            degraded=merged.degraded)
+        # n_dist counts REAL rows scanned: each alive shard's slice of the n
+        # rows (the padding rows it also touched are +inf-masked sentinels)
+        scanned = sum(max(0, min(self.n - i * self.n_local, self.n_local))
+                      for i, a in enumerate(alive) if a)
+        counters = _zero_counters(q, self.device)
+        counters["n_dist"] = torch.full((q,), scanned, dtype=torch.int32,
+                                        device=self.device)
+        return SearchResult(merged.ids, merged.dists, degraded=merged.degraded,
+                            **counters)
 
     def memory_bytes(self) -> int:
-        vec = 0 if self.vectors is None else self.vectors.numel() * 4
-        return self.codes.numel() * self.codes.element_size() + vec
+        # UNPADDED sizes: what the index costs, not the divisibility slack
+        return self._codes_bytes + self._vec_bytes
+
+
+# ==========================================================================
+# Graph-routed sharded serving (DESIGN.md §6): every shard's beam runs over
+# its OWN Vamana subgraph. On one device the S subgraphs are the blocks of
+# one block-diagonal graph (graphs/partition.block_diagonal) and the S
+# beams of each query are S lanes of ONE lockstep beam (lane q·S + s), so a
+# round is still one hop_adc / hop_adc_fs launch for the whole batch.
+# ==========================================================================
+
+@dataclasses.dataclass
+class ShardedGraphEngine:
+    """Graph-ROUTED scatter-gather serving over ``n_shards`` shards.
+
+    The dataset is partitioned into contiguous per-shard row ranges with an
+    independent Vamana subgraph per shard (``graphs/partition.py``). Each
+    query's beam runs on every shard, walking only that shard's subgraph
+    with ADC distances, optionally exact-reranks its beam against the
+    shard's resident vector rows (DiskANN-style), and answers a LOCAL top-k
+    with GLOBAL ids; ``partial_merge`` merges the shard shortlists, so a
+    dead shard's row range drops out of the answer and the query never
+    fails.
+
+    Attributes:
+      graph:    PartitionedGraph over the same row order as ``codes``.
+      codes:    (N, M) u8 codes, or fs4 (N, ceil(M/2)), global row order.
+      lut_fn:   (Q, D) queries → LUTs or QuantizedLUT.
+      vectors:  optional (N, D) full vectors; enables local exact rerank.
+      device:   default cuda.
+      n_shards: the reference's mesh size (default: the visible CUDA
+                devices); must equal the graph's shard count.
+    """
+    graph: PartitionedGraph
+    codes: torch.Tensor
+    lut_fn: Callable
+    vectors: Optional[torch.Tensor] = None
+    device: object = None
+    n_shards: Optional[int] = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        if self.n_shards is None:
+            self.n_shards = visible_cuda_devices()
+        if self.n_shards != self.graph.n_shards:
+            raise ValueError(
+                f"graph has {self.graph.n_shards} shards but the engine has "
+                f"{self.n_shards} — partition with n_shards={self.n_shards}")
+        self.n = int(self.graph.n)
+        if int(self.codes.shape[0]) != self.n:
+            raise ValueError(f"codes rows {self.codes.shape[0]} != "
+                             f"graph rows {self.n}")
+        self.graph = self.graph.to(self.device)
+        self.n_local = self.graph.n_local
+        codes = self.codes.to(self.device)
+        self._codes_bytes = codes.numel() * codes.element_size()
+        self.codes = codes
+        self._nbrs, self._medoids = block_diagonal(self.graph)
+        self._codes_p = kops.pad_sentinel_row(
+            kops.pad_rows_to_multiple(codes, self.n_shards)).contiguous()
+        self._vec_bytes = 0
+        if self.vectors is not None:
+            vec = self.vectors.to(self.device, torch.float32)
+            self._vec_bytes = vec.numel() * 4
+            self._vec_p = kops.pad_sentinel_row(
+                kops.pad_rows_to_multiple(vec, self.n_shards))
+            self.vectors = vec
+        self._seedstk = None
+
+    def _shard_codes(self, s: int) -> torch.Tensor:
+        return self._codes_p[s * self.n_local:(s + 1) * self.n_local]
+
+    def _seed_stack(self, luts) -> tuple:
+        """Per-shard coarse seeding indexes, built on the first ``entries >
+        1`` search: one ``seed.build_seed_index`` over each shard's REAL rows
+        (a beam must never start on padding), with ``k`` and ``m_hash``
+        shared across shards and the pivots padded with -1 to one width, as
+        the reference stacks them. Returns (tables, pivots, k, m_hash,
+        candidates scored per query)."""
+        if self._seedstk is None:
+            codes = self.codes
+            if _is_packed(luts):
+                codes = unpack_codes(codes, _lut_m(luts))
+            codes = _stack_rows(codes, self.n_shards, self.n_local)
+            k = int(codes.max()) + 1
+            m_hash = sseed.auto_m_hash(codes.shape[2], k)
+            ixs = [sseed.build_seed_index(
+                codes[i, :max(1, min(self.n - i * self.n_local, self.n_local))],
+                k=k, m_hash=m_hash, device=self.device)
+                for i in range(self.n_shards)]
+            pw = max(ix.pivots.shape[0] for ix in ixs)
+            pivots = [torch.nn.functional.pad(ix.pivots, (0, pw - ix.pivots.shape[0]),
+                                              value=-1) for ix in ixs]
+            self._seedstk = ([ix.table for ix in ixs], pivots, k, m_hash,
+                             ixs[0].table.shape[1] + pw)
+        return self._seedstk
+
+    def _entries(self, luts, q: int, entries: int) -> tuple[torch.Tensor, int]:
+        """Each lane's entry: its shard's medoid, or with ``entries > 1`` the
+        shard's own seeded entry set (global ids, -1 padding). Returns
+        ((Q·S,) or (Q·S, entries) ids, the seed probe's cost per lane)."""
+        if entries <= 1:
+            return self._medoids.repeat(q), 0
+        tables, pivots, k, m_hash, cost = self._seed_stack(luts)
+        per = []
+        for s in range(self.n_shards):
+            e = sseed.seed_entries_from(tables[s], pivots[s], self._shard_codes(s),
+                                        luts, k=k, m_hash=m_hash, s=entries)
+            per.append(torch.where(e >= 0, e + s * self.n_local, -1))
+        return torch.stack(per, dim=1).reshape(q * self.n_shards, entries), cost
+
+    def _scatter(self, luts, queries: torch.Tensor, *, k: int, h: int,
+                 max_steps: int, expand: int, entries: int, prune_eps: float,
+                 m_prefix: int, max_rounds, max_n_dist) -> tuple:
+        """Every shard's LOCAL answer: (Q·S, k) global ids (-1 for sentinel
+        and padding slots) and distances (+inf there), and the (Q·S,)
+        counters of each lane's beam."""
+        q = queries.shape[0]
+        entry, seed_cost = self._entries(luts, q, entries)
+        res = _adc_beam(self._nbrs, self._codes_p, entry, luts, seed_cost, h=h,
+                        max_steps=max_steps, expand=expand, prune_eps=prune_eps,
+                        m_prefix=m_prefix, max_rounds=max_rounds,
+                        max_n_dist=max_n_dist, lanes_per_query=self.n_shards)
+        if self.vectors is None:
+            ids, d = res.ids[:, :k].long(), res.dists[:, :k]
+        else:
+            # DiskANN-style local refinement: the whole beam re-ranked
+            # against the shard's own rows (the sentinel reads a zero row)
+            cand = res.ids.long()
+            cv = self._vec_p[cand].reshape(q, -1, self._vec_p.shape[1])
+            exact = ((cv - queries[:, None, :]) ** 2).sum(dim=-1).reshape(cand.shape)
+            exact = torch.where(torch.isfinite(res.dists), exact, float("inf"))
+            d, order = torch.sort(exact, dim=1, stable=True)
+            ids, d = cand.gather(1, order[:, :k]), d[:, :k]
+        # local ids → global: sentinel slots and padding rows become
+        # (-1, +inf), so the merge never sees them
+        ok = (ids < self.n) & torch.isfinite(d)
+        return (torch.where(ok, ids, -1), torch.where(ok, d, float("inf")),
+                res)
+
+    def search(self, queries: torch.Tensor, *, k: int = 10, h: int = 32,
+               max_steps: int = 512, expand: int = 1,
+               alive: Optional[Sequence[bool]] = None, entries: int = 1,
+               prune_eps: float = 0.0, m_prefix: int = 0,
+               max_rounds=None, max_n_dist=None,
+               deadline_s: Optional[float] = None,
+               quorum: Optional[int] = None,
+               shard_latency_s: Optional[Sequence[float]] = None
+               ) -> SearchResult:
+        """Route every query on every (alive) shard, merge the shortlists.
+
+        ``hops`` / ``n_dist`` are the SUM over merged shards (the total
+        work), ``rounds`` the MAX (the shards route concurrently), and
+        ``truncated`` is any-over-merged-shards. ``entries`` / ``prune_eps``
+        / ``m_prefix`` / ``max_rounds`` / ``max_n_dist`` apply to EVERY
+        shard's beam: each shard seeds from its own coarse index.
+        ``deadline_s`` + ``shard_latency_s`` model the quorum merge
+        (``dist.fault.resolve_quorum``): shards over the deadline count as
+        dead for this call unless fewer than ``quorum`` (default: a
+        majority of the alive) would remain. ``degraded`` is True whenever
+        the answer merged fewer shards than exist."""
+        queries = torch.atleast_2d(queries.to(self.device, torch.float32))
+        kk = min(k, h, self.n_local)
+        luts = self.lut_fn(queries)
+        gids, dists, res = self._scatter(
+            luts, queries, k=kk, h=h, max_steps=max_steps, expand=expand,
+            entries=entries, prune_eps=prune_eps, m_prefix=m_prefix,
+            max_rounds=max_rounds, max_n_dist=max_n_dist)
+        alive = [True] * self.n_shards if alive is None else list(alive)
+        quorum_degraded = False
+        if deadline_s is not None or quorum is not None:
+            lat = (list(shard_latency_s) if shard_latency_s is not None
+                   else [0.0] * self.n_shards)
+            decision = resolve_quorum(alive, lat, deadline_s, quorum)
+            alive = list(decision.alive)
+            quorum_degraded = decision.degraded
+        s = self.n_shards
+        merged = partial_merge(list(_by_shard(gids, s)), list(_by_shard(dists, s)),
+                               alive, k)
+        q = queries.shape[0]
+        mask = torch.tensor(alive, dtype=torch.bool, device=self.device)
+        if bool(mask.any()):
+            lanes = lambda t: t.reshape(q, s)[:, mask]
+            counters = dict(hops=lanes(res.hops).sum(dim=1, dtype=torch.int32),
+                            n_dist=lanes(res.n_dist).sum(dim=1, dtype=torch.int32),
+                            rounds=lanes(res.rounds).amax(dim=1),
+                            truncated=lanes(res.truncated).any(dim=1))
+        else:  # every shard dead: sentinel answer, zero-work counters
+            counters = _zero_counters(q, self.device)
+        return SearchResult(merged.ids, merged.dists,
+                            degraded=bool(merged.degraded or quorum_degraded),
+                            **counters)
+
+    def memory_bytes(self) -> int:
+        # UNPADDED codes + per-shard adjacency (+ vectors when resident)
+        return (self._codes_bytes + self.graph.neighbors.numel() * 4
+                + self._vec_bytes)

@@ -7,7 +7,7 @@ CPU (``--device cpu``, the unit-test dataset, M=4, K=16):
   by it, served by the port's ``serve`` gives the ids of the JAX engines on
   the same quantizer and graph (every id equal);
 * the ``--port-stdin`` loop survives garbage lines;
-* an unported scenario exits with the queue item that holds it;
+* the scenario that waited for a later slice (``sharded-graph``) serves;
 * without CUDA, both drivers raise unless given ``--device cpu``.
 """
 
@@ -150,10 +150,40 @@ def test_serve_stdin_survives_garbage_lines(tmp_path, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("scenario,item", [("sharded-graph", "item 14")])
-def test_unported_scenario_exits_with_its_queue_item(tmp_path, scenario, item):
-    with pytest.raises(SystemExit, match=f"not ported.*{item}"):
-        tserve.main(["--ckpt-dir", str(tmp_path), "--scenario", scenario,
-                     "--device", "cpu"])
+def test_unported_scenario_exits_with_its_queue_item(tmp_path, capsys, scenario, item):
+    """Every scenario of the reference is ported now: the one that waited
+    for its queue item serves instead of exiting."""
+    d = str(tmp_path)
+    _tiny_port_checkpoint(d)
+    capsys.readouterr()
+    res = tserve.main(["--ckpt-dir", d, "--scenario", scenario, "--shards", "2",
+                       "--graph-r", "8", "--graph-l", "16", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "not ported" not in out and f"[serve] {scenario}: recall@10=" in out
+    assert res["engine"].n_shards == 2 and res["result"].ids.shape[1] == 10
+
+
+@pytest.mark.parametrize("batch", [1024, 64])
+def test_graph_batch_reaches_the_builders(tmp_path, batch):
+    """``--graph-batch`` (default 1024, the reference builder's batch) is the
+    batch of every graph the drivers build: the cached graph and partition
+    equal ``build_vamana`` / ``build_partitioned_vamana`` at that batch."""
+    from repro_torch.graphs import build_vamana
+    from repro_torch.graphs.partition import build_partitioned_vamana
+
+    assert ttrain.parser().parse_args([]).graph_batch == 1024
+    assert tserve.parser().parse_args(["--ckpt-dir", "d"]).graph_batch == 1024
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((300, 8)).astype(np.float32))
+    gen = lambda: torch.Generator().manual_seed(0)
+    g = ttrain.build_or_load_graph(gen(), x, str(tmp_path / "g.npz"), 8, 16, batch)
+    want = build_vamana(x, generator=gen(), r=8, l=16, batch=batch, device="cpu")
+    assert torch.equal(g.neighbors, want.neighbors) and int(g.medoid) == int(want.medoid)
+    pg = tserve.build_or_load_partitioned_graph(gen(), x, str(tmp_path / "p.npz"), 2, 8, 16,
+                                                batch)
+    pwant = build_partitioned_vamana(x, 2, generator=gen(), r=8, l=16, batch=batch,
+                                     device="cpu")
+    assert torch.equal(pg.neighbors, pwant.neighbors)
+    assert torch.equal(pg.medoids, pwant.medoids)
 
 
 def test_drivers_refuse_the_cpu_unasked(tmp_path, monkeypatch):

@@ -16,6 +16,7 @@ generation restorable, and refreshed codebooks beat frozen ones on recall
 under drift.
 """
 
+import dataclasses
 import importlib
 
 import numpy as np
@@ -186,10 +187,13 @@ def test_refresh_too_few_live_rows_and_data_parallel_raise(S):
                       vectors=T_(S["x"]))
     ts = Tombstones(N, device="cpu")
     ts.add(np.arange(N - 5))
-    with pytest.raises(ValueError, match="live rows"):
-        refresh_quantizer(seg, model, tombstones=ts._words, cfg=TINY, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 14"):
-        refresh_quantizer(seg, model, cfg=RefreshConfig(data_parallel=True), device="cpu")
+    dp = dataclasses.replace(TINY, data_parallel=True)
+    for cfg in (TINY, dp):
+        with pytest.raises(ValueError, match="live rows"):
+            refresh_quantizer(seg, model, tombstones=ts._words, cfg=cfg, device="cpu")
+    # the data-parallel fit is ported: it trains instead of raising
+    new, rep = refresh_quantizer(seg, model, cfg=dp, device="cpu")
+    assert bool(torch.isfinite(new.codebooks).all()) and len(rep["history"]) > 0
 
 
 def test_refresh_subsample_is_the_references(S, monkeypatch):
