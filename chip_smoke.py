@@ -44,7 +44,13 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    (the plain versions) from the same graph and quantizer must agree; at
    S=4, one partition built on the CPU served by ``ShardedGraphEngine``
    (three knob sets) and ``ShardedEngine(n_shards=4)`` in both layouts on
-   the card and on the CPU with the same LUTs must agree bit for bit;
+   the card and on the CPU with the same LUTs must agree bit for bit; the
+   unit-test HNSW (m=8) and NSG (r=16, k=24, search_l=24) built on the card
+   and on the CPU from the same draws (rows identical on ≥ 95%), HNSW
+   descent (entries identical on ≥ 99%) and ``InMemoryEngine`` with
+   ``entry_fn=descend`` (top-10 identical on ≥ 99%) on both, and a small
+   Catalyst trained on the CPU served on both (``forward`` within 1e-5,
+   codes identical on ≥ 99.9%);
 5. u8 path at full width: ``load_dataset("sift", scale=10)``, ``knn_ids``
    ground truth, ``train_pq(M=16, K=256)``, ``build_vamana(r=64, l=128)``
    (beside phase 11, whose end it then waits for),
@@ -184,7 +190,36 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    ``adc_scan_batch`` and ``adc_scan_fs`` ran; DP losses finite and every
    error-feedback residual within one quantization step.
 
-Phases 5–14 each read every kernel's launch count around their own run.
+15. pgraphs (run after phase 14, in the main process): on phase 5's 1M
+   base, queries and ground truth, ``build_hnsw(m=12)`` and
+   ``build_nsg(r=24, k=32, search_l=32)`` (the parameters of
+   ``benchmarks/paper_tables.py:85-86``; NSG at phase 5's Vamana batch),
+   their seconds and the exact kNN's share, degree stats and NSG's nodes
+   unreachable before each repair pass; ``train_opq(outer_iters=4,
+   kmeans_iters=8)`` and ``train_catalyst(M=16, K=256, d_out=48,
+   steps=1000)`` on ``ds.train`` (d_out=48: the multiple of 16 nearest the
+   paper's 40, which the reference's assert rejects at M=16), training
+   seconds and model bytes beside PQ's and RPQ's (Tables 4-5);
+   ``InMemoryEngine`` over HNSW (``entry_fn=descend``) and over NSG with
+   phase 5's PQ, OPQ's and phase 8's RPQ codes (h=32, k=10; recall@10,
+   QPS, rounds, hops; Figures 6-7) and the descent's ms alone;
+   ``HybridEngine`` and ``InMemoryEngine`` with Catalyst codes, and
+   ``HybridEngine`` with OPQ codes, over phase 5's Vamana graph (Figure
+   5); each graph's exact-routed recall@10; one traced HNSW-PQ search
+   (busy share, ``hop_adc`` µs a launch). Checks: (a) HNSW's base degree
+   ≤ 2m and its upper layers' ≤ m, NSG's ≤ r, no self edge, no id past
+   the sentinel, and BFS from NSG's medoid reaches every node; (b) for
+   HNSW-PQ and NSG-PQ the kernel-routed top-10 equals the plain-routed one
+   (``ref.hop_adc_ref``, same entries) on ≥ 99% of queries; (c) each
+   graph's exact-routed recall ≥ its floor (``MIN_EXACT_RECALL_HNSW``,
+   ``MIN_EXACT_RECALL_NSG``); (d) Catalyst's losses finite at every step,
+   ``catalyst.adc`` equal to the plain ``adc_scan_batch`` bit for bit on
+   1000 queries, its Hybrid recall ≥ its InMemory recall; (e)
+   ``pq_pairwise``, ``hop_adc`` and ``adc_scan_batch`` ran. No ordering
+   between quantizers is gated: their ADC recall on this spec is about
+   0.01.
+
+Phases 5–15 each read every kernel's launch count around their own run.
 The last three lines are the kernels JSON (each kernel's ``launches`` summed
 over those counted runs; the int32 variants are rows of their own), the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -200,6 +235,7 @@ unpacked by ``git archive``) compare in one chip call.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import math
@@ -228,6 +264,17 @@ VAMANA_BATCH = 16384
 # main_path). An H100 read 0.7298 at 1M (batch 8192; 0.7193 at batch 1024)
 # and 0.9996 at 100k; a graph that routes nowhere scores near 0.
 MIN_EXACT_RECALL = 0.65
+# Least exact-routed recall@10 at h=32 of phase 15's HNSW (from its
+# descent) and NSG. Their builders are the reference's: exact kNN pruned
+# with alpha = 1, which on this spec's well-separated clusters keeps no
+# edge between two clusters. NSG is joined only through its repair's
+# adoptions; HNSW's layers stay split by cluster, and at 1M its top layer
+# holds about ten members a cluster, so the descent reaches the query's
+# cluster only sometimes (an H100 read HNSW 0.0796 and NSG 0.4455 at 1M).
+# The floors hold that each graph routes at all: a search that never
+# leaves the entry's cluster scores about 1/200.
+MIN_EXACT_RECALL_HNSW = 0.05
+MIN_EXACT_RECALL_NSG = 0.3
 
 
 def log(msg: str) -> None:
@@ -1135,6 +1182,16 @@ def wide_parity_and_timing(n_base: int, n_query: int) -> dict:
 # phase 4: the slice on a small input, card vs CPU
 # --------------------------------------------------------------------------
 
+def rows_identical(a, b) -> float:
+    """Share of rows of two (N, R) adjacencies with the same neighbour
+    set (``b`` may lie on another device)."""
+    import torch
+
+    return float(torch.mean(torch.tensor(
+        [set(x.tolist()) == set(y.tolist()) for x, y in zip(a.cpu(), b.cpu())],
+        dtype=torch.float32)))
+
+
 def small_reference() -> None:
     import torch
 
@@ -1149,9 +1206,7 @@ def small_reference() -> None:
     gt, _ = knn_ids(cpu.base, cpu.queries, 10)
     g_cpu = build_vamana(cpu.base, generator=gen(0), r=16, l=32, device="cpu")
     g_gpu = build_vamana(cpu.base, generator=gen(0), r=16, l=32, device="cuda")
-    same_rows = float(torch.mean(torch.tensor(
-        [set(a.tolist()) == set(b.tolist())
-         for a, b in zip(g_cpu.neighbors, g_gpu.neighbors.cpu())], dtype=torch.float32)))
+    same_rows = rows_identical(g_cpu.neighbors, g_gpu.neighbors)
     m_cpu = train_pq(cpu.train, 8, 32, generator=gen(1), iters=8, device="cpu")
     m_gpu = m_cpu.to("cuda")
     codes_cpu = base.encode(m_cpu, cpu.base)
@@ -1171,6 +1226,7 @@ def small_reference() -> None:
     check(same_rows >= 0.95, "Vamana build on the card disagrees with the CPU")
     check(abs(rec_cpu - rec_gpu) <= 0.01, "recall on the card disagrees with the CPU")
     small_sharded(cpu, m_cpu, codes_cpu)
+    small_pgraphs(cpu, m_cpu, codes_cpu)
 
 
 def small_sharded(cpu, m_cpu, codes_cpu) -> None:
@@ -1207,6 +1263,64 @@ def small_sharded(cpu, m_cpu, codes_cpu) -> None:
         same[f"scan {lay}"] = same_search(*scan)
     log(f"[small] S={SHARDS} partition, card vs CPU bit for bit: {same}")
     check(all(same.values()), "a sharded engine on the card disagrees with the CPU")
+
+
+def small_pgraphs(cpu, m_cpu, codes_cpu) -> None:
+    """Phase 4's other graphs and Catalyst: the unit-test dataset's HNSW
+    (m=8) and NSG (r=16, k=24, search_l=24) built on the card and on the
+    CPU from the same draws, HNSW descent and an ``entry_fn`` search on
+    both, and a small Catalyst served on both."""
+    import torch
+
+    from repro_torch.graphs import build_hnsw, build_nsg, descend
+    from repro_torch.pq import base
+    from repro_torch.pq import catalyst
+    from repro_torch.search.engine import InMemoryEngine
+
+    q = cpu.queries
+    hs = {dev: build_hnsw(cpu.base, generator=torch.Generator().manual_seed(2), m=8,
+                          device=dev) for dev in ("cpu", "cuda")}
+    h_rows = min([rows_identical(hs["cpu"].base.neighbors, hs["cuda"].base.neighbors)]
+                 + [rows_identical(a.neighbors, b.neighbors)
+                    for a, b in zip(hs["cpu"].layers, hs["cuda"].layers)])
+    same_members = all(torch.equal(a, b.cpu()) for a, b in
+                       zip(hs["cpu"].members, hs["cuda"].members))
+    ents = {dev: descend(h, q.to(dev), cpu.base.to(dev)) for dev, h in hs.items()}
+    same_entry = float((ents["cpu"] == ents["cuda"].cpu()).float().mean())
+
+    def entry_search(dev):
+        """The CPU's HNSW served on ``dev``, entries from its own descent."""
+        h, model, x = hs["cpu"].to(dev), m_cpu.to(dev), cpu.base.to(dev)
+        eng = InMemoryEngine(h.base, codes_cpu, lambda qq: base.build_lut(model, qq),
+                             device=dev, entry_fn=lambda qq: descend(h, qq, x))
+        return eng.search(q, k=10, h=32)
+
+    res = {dev: entry_search(dev) for dev in ("cpu", "cuda")}
+    same_top = float((res["cpu"].ids == res["cuda"].ids.cpu()).all(dim=1).float().mean())
+    ns = {dev: build_nsg(cpu.base, r=16, k=24, search_l=24, device=dev)
+          for dev in ("cpu", "cuda")}
+    n_rows = rows_identical(ns["cpu"].neighbors, ns["cuda"].neighbors)
+    cm, losses = catalyst.train_catalyst(cpu.train, 8, 32,
+                                         generator=torch.Generator().manual_seed(4),
+                                         d_out=16, steps=50, device="cpu")
+    cm_gpu = cm.to("cuda")
+    y_err = float((catalyst.forward(cm_gpu.net, cpu.base.cuda()).cpu()
+                   - catalyst.forward(cm.net, cpu.base)).abs().max())
+    codes_gpu = catalyst.encode(cm_gpu, cpu.base.cuda()).cpu()
+    same_codes = float((catalyst.encode(cm, cpu.base) == codes_gpu).all(dim=1).float().mean())
+    log(f"[small] HNSW m=8 (layers {[g.n for g in hs['cpu'].layers]}): rows identical card vs "
+        f"CPU {h_rows:.4f} (min over layers), members equal {same_members}, descend entries "
+        f"identical {same_entry:.4f}, entry_fn top-10 identical {same_top:.4f}; NSG r=16 rows "
+        f"identical {n_rows:.4f}; Catalyst (d_out=16, 50 steps) forward max abs err "
+        f"{y_err:.3e}, codes identical {same_codes:.4f}")
+    check(same_members, "HNSW layer members differ card vs CPU")
+    check(h_rows >= 0.95, "HNSW build on the card disagrees with the CPU")
+    check(n_rows >= 0.95, "NSG build on the card disagrees with the CPU")
+    check(same_entry >= 0.99, "HNSW descent on the card disagrees with the CPU")
+    check(same_top >= 0.99, "the entry_fn search on the card disagrees with the CPU")
+    check(bool(torch.isfinite(losses).all()), "small Catalyst: a loss is not finite")
+    check(y_err <= 1e-5, f"Catalyst forward on the card disagrees with the CPU ({y_err:.3e})")
+    check(same_codes >= 0.999, "Catalyst encode on the card disagrees with the CPU")
 
 
 # --------------------------------------------------------------------------
@@ -1295,7 +1409,7 @@ def main_path(args, wait_for_cli) -> tuple:
         ds.train, 16, 256, generator=torch.Generator().manual_seed(1), iters=20))
     graph = timed_("build_vamana", lambda: build_vamana(
         ds.base, generator=torch.Generator().manual_seed(0), r=64, l=128,
-        batch=args.vamana_batch))
+        batch=args.vamana_batch, verbose=True))
     # phase 11 ran beside the build; nothing timed from here on shares the card
     timed_("wait_for_cli", wait_for_cli)
     # the graph alone: exact-distance routing, which the quantizer cannot cap
@@ -2563,7 +2677,8 @@ def per_shard_merge(pg, codes, lut_fn, queries, **kw):
                         rounds=stack("rounds").amax(0), truncated=stack("truncated").any(0))
 
 
-def search_row(eng, queries, gt, label: str, **kw) -> tuple[dict, object]:
+def search_row(eng, queries, gt, label: str, *, tag: str = "sharded", **kw
+               ) -> tuple[dict, object]:
     """One engine configuration: its first search's recall@10, rounds
     (mean and max), hops, ``n_dist`` and truncated share, its QPS over the
     1000 queries, and its kernel launches in one search."""
@@ -2581,7 +2696,7 @@ def search_row(eng, queries, gt, label: str, **kw) -> tuple[dict, object]:
            "truncated": float(res.truncated.float().mean()),
            "launches_one_search": {k: after[k] - before[k] for k in after
                                    if after[k] > before[k]}}
-    log(f"[sharded] {label}: recall@10 {row['recall']:.4f} qps {qps:.1f} rounds "
+    log(f"[{tag}] {label}: recall@10 {row['recall']:.4f} qps {qps:.1f} rounds "
         f"{row['rounds_mean']:.2f} (max {row['rounds_max']}) hops {row['hops']:.2f} "
         f"n_dist {row['n_dist']:.1f} truncated {row['truncated']:.3f}; launches in one "
         f"search {row['launches_one_search']}")
@@ -2790,6 +2905,246 @@ def sharded_path(args, ds, gt, graph, u8_model, u8_codes, fs4_model, fs4_packed,
                 checks=checks, launches=counts, peak_gib=peak_gb, n_local=nl,
                 busy={k: {kk: v for kk, v in b.items() if kk != "per_kernel"}
                       for k, b in busy.items()})
+
+
+# --------------------------------------------------------------------------
+# phase 15: the paper's other graphs and its learned baseline
+# --------------------------------------------------------------------------
+
+# benchmarks/paper_tables.py:85-86 and benchmarks/common.py:73-77
+HNSW_M = 12
+NSG_R, NSG_K, NSG_L = 24, 32, 32
+# The multiple of M=16 nearest the paper's d_out=40, which the reference's
+# own train_pq assert rejects at M=16.
+CATALYST_D_OUT = 48
+CATALYST_STEPS = 1000
+
+
+@contextlib.contextmanager
+def knn_seconds(module, spent: list):
+    """While open, ``module.knn_ids`` appends its synchronized wall seconds
+    to ``spent`` (a builder's kNN share)."""
+    import torch
+
+    inner = module.knn_ids
+
+    def wrapper(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*a, **kw)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    module.knn_ids = wrapper
+    try:
+        yield spent
+    finally:
+        module.knn_ids = inner
+
+
+@contextlib.contextmanager
+def nsg_repair_log(module, out: dict):
+    """While open, NSG's connectivity repair records its seconds, the
+    nodes a BFS from the medoid misses before each adoption pass
+    (``missing_per_pass``: the first is the reference's one pass) and
+    after the last."""
+    inner_repair, inner_adopt = module._repair_connectivity, module._adopt
+
+    def repair(x, nbrs, medoid, r):
+        out["missing_per_pass"] = []
+        t0 = time.perf_counter()
+        fixed = inner_repair(x, nbrs, medoid, r)
+        out["repair_s"] = time.perf_counter() - t0
+        out["unreachable_after"] = len(module.unreachable(fixed, medoid))
+        return fixed
+
+    def adopt(x, nbrs, missing, r):
+        out["missing_per_pass"].append(len(missing))
+        inner_adopt(x, nbrs, missing, r)
+
+    module._repair_connectivity, module._adopt = repair, adopt
+    try:
+        yield out
+    finally:
+        module._repair_connectivity, module._adopt = inner_repair, inner_adopt
+
+
+def adjacency_ok(nbrs, max_degree: int) -> bool:
+    """Degree ≤ ``max_degree`` (the table's width), no self edge, every id
+    in [0, n] (n the sentinel)."""
+    import torch
+
+    n = nbrs.shape[0]
+    return (nbrs.shape[1] == max_degree and int(nbrs.min()) >= 0 and int(nbrs.max()) <= n
+            and not bool((nbrs.long() == torch.arange(n, device=nbrs.device)[:, None]).any()))
+
+
+def pgraphs_path(args, ds, gt, graph, pq_model, pq_codes, rpq_model, rpq_codes,
+                 kernels: dict, train_s: dict) -> dict:
+    """Phase 15: HNSW (m=12) and NSG (r=24, k=32, search_l=32) on the 1M
+    base, OPQ and Catalyst trained here, the PQ, OPQ and RPQ codes served
+    over both graphs (HNSW with ``entry_fn=descend``), Catalyst's codes over
+    phase 5's Vamana graph, and checks (a)–(e)."""
+    import torch
+
+    from repro_torch.graphs import build_hnsw, build_nsg, descend, degree_stats
+    from repro_torch.graphs import hnsw as hnsw_mod
+    from repro_torch.graphs import nsg as nsg_mod
+    from repro_torch.kernels import ops, ref
+    from repro_torch.pq import base, catalyst, train_opq
+    from repro_torch.search import beam
+    from repro_torch.search.engine import HybridEngine, InMemoryEngine
+    from repro_torch.search.metrics import recall_at_k
+
+    times: dict[str, float] = {}
+    timed_ = lambda label, fn: timed(times, "pgraphs", label, fn)
+    gen = lambda seed: torch.Generator().manual_seed(seed)
+    q, nq, n = ds.queries, ds.queries.shape[0], ds.base.shape[0]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    checks, build = {}, {}
+
+    with knn_seconds(hnsw_mod, []) as spent:
+        h = timed_("build_hnsw", lambda: build_hnsw(ds.base, generator=gen(2), m=HNSW_M))
+    build["hnsw"] = {"s": times["build_hnsw"], "knn_s": sum(spent),
+                     "layers": [int(g.n) for g in h.layers],
+                     "degree": [degree_stats(g) for g in (h.base, *h.layers)]}
+    repair: dict = {}
+    with knn_seconds(nsg_mod, []) as spent, nsg_repair_log(nsg_mod, repair):
+        g_nsg = timed_("build_nsg", lambda: build_nsg(
+            ds.base, r=NSG_R, k=NSG_K, search_l=NSG_L, batch=args.vamana_batch))
+    build["nsg"] = {"s": times["build_nsg"], "knn_s": sum(spent), **repair,
+                    "degree": degree_stats(g_nsg)}
+    for name, b in build.items():
+        log(f"[pgraphs] {name}: built in {b['s']:.2f} s, of it exact kNN {b['knn_s']:.2f} s "
+            f"({b['knn_s'] / b['s']:.3f}); degree {b['degree']}"
+            + (f"; upper layers {b['layers']}" if name == "hnsw" else
+               f"; unreachable from the medoid before each adoption pass "
+               f"{b['missing_per_pass']}, after the repair {b['unreachable_after']} (repair "
+               f"{b['repair_s']:.2f} s)"))
+    # (a) degrees, self edges, id range; NSG reachable from its medoid
+    check(adjacency_ok(h.base.neighbors, 2 * HNSW_M)
+          and all(adjacency_ok(g.neighbors, HNSW_M) for g in h.layers),
+          "(a) an HNSW layer has a self edge, an id out of range or a wrong degree")
+    check(adjacency_ok(g_nsg.neighbors, NSG_R),
+          "(a) NSG has a self edge, an id out of range or a degree above r")
+    check(repair["unreachable_after"] == 0,
+          f"(a) {repair['unreachable_after']} NSG nodes unreachable from the medoid after "
+          f"the repair")
+    checks["a"] = True
+
+    opq = timed_("train_opq", lambda: train_opq(ds.train, 16, 256, generator=gen(3),
+                                                outer_iters=4, kmeans_iters=8))
+    cm, losses = timed_("train_catalyst", lambda: catalyst.train_catalyst(
+        ds.train, 16, 256, generator=gen(4), d_out=CATALYST_D_OUT, steps=CATALYST_STEPS))
+    opq_codes = timed_("encode_opq", lambda: base.encode(opq, ds.base))
+    cat_codes = timed_("encode_catalyst", lambda: catalyst.encode(cm, ds.base))
+    nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+    cost = {"pq": {"train_s": train_s["pq"], "bytes": nbytes(pq_model.r, pq_model.codebooks)},
+            "opq": {"train_s": times["train_opq"], "bytes": nbytes(opq.r, opq.codebooks)},
+            "catalyst": {"train_s": times["train_catalyst"],
+                         "bytes": nbytes(*cm.net, cm.pq.r, cm.pq.codebooks)},
+            "rpq": {"train_s": train_s["rpq"],
+                    "bytes": nbytes(rpq_model.r, rpq_model.codebooks)}}
+    log(f"[pgraphs] training s and model bytes (Tables 4-5): {cost}")
+    losses_finite = bool(torch.isfinite(losses).all())
+    log(f"[pgraphs] catalyst (d_out={CATALYST_D_OUT}, {CATALYST_STEPS} steps): loss "
+        f"{float(losses[0]):.4f} -> {float(losses[-1]):.4f}, finite at every step "
+        f"{losses_finite}")
+
+    lut_fns = {"pq": lambda qq: base.build_lut(pq_model, qq),
+               "opq": lambda qq: base.build_lut(opq, qq),
+               "rpq": lambda qq: base.build_lut(rpq_model, qq)}
+    codes = {"pq": pq_codes, "opq": opq_codes, "rpq": rpq_codes}
+    entry_fn = lambda qq: descend(h, qq, ds.base)
+    descend_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        entries = entry_fn(q)
+        torch.cuda.synchronize()
+        descend_ms.append((time.perf_counter() - t0) * 1e3)
+    rows, res, engines = {}, {}, {}
+    for gname, g, efn in (("hnsw", h.base, entry_fn), ("nsg", g_nsg, None)):
+        for qn in ("pq", "opq", "rpq"):
+            tag = f"{gname}_{qn}"
+            engines[tag] = InMemoryEngine(g, codes[qn], lut_fns[qn], entry_fn=efn)
+            rows[tag], res[tag] = search_row(engines[tag], q, gt, f"{gname.upper()}-"
+                                             f"{qn.upper()} InMemoryEngine h=32", h=32,
+                                             tag="pgraphs")
+    rows["hnsw_descend_ms"] = statistics.median(descend_ms)
+    log(f"[pgraphs] HNSW descent alone for {nq} queries: {rows['hnsw_descend_ms']:.2f} ms "
+        f"(median of 3), {rows['hnsw_descend_ms'] * rows['hnsw_pq']['qps'] / nq / 10:.1f}% of "
+        f"an HNSW-PQ batch")
+    # (b) kernel-routed top-10 equals the plain-routed one, from the same entries
+    for tag, g, ent in (("hnsw_pq", h.base, entries), ("nsg_pq", g_nsg, g_nsg.medoid)):
+        codes_p = ops.pad_sentinel_row(pq_codes)
+        res_p = beam.beam_search(g.neighbors, ent, lut_fns["pq"](q),
+                                 lambda luts, ids: ref.hop_adc_ref(codes_p, ids, luts),
+                                 h=32, max_steps=512)
+        same = float((res_p.ids[:, :10] == res[tag].ids).all(dim=1).float().mean())
+        rows[tag]["same_top10_plain"] = same
+        log(f"[pgraphs] (b) {tag}: top-10 identical with the plain hop_adc routing on "
+            f"{same:.4f} of queries")
+        check(same >= 0.99, f"(b) {tag}: kernel-routed and plain-routed searches disagree")
+    checks["b"] = True
+
+    # Figure 5: Catalyst codes over phase 5's Vamana graph (and OPQ's beside)
+    cat_lut = lambda qq: catalyst.build_lut(cm, qq)
+    for tag, eng in (("vamana_catalyst_hybrid", HybridEngine(graph, cat_codes, cat_lut,
+                                                             vectors=ds.base)),
+                     ("vamana_catalyst_inmemory", InMemoryEngine(graph, cat_codes, cat_lut)),
+                     ("vamana_opq_hybrid", HybridEngine(graph, opq_codes, lut_fns["opq"],
+                                                        vectors=ds.base))):
+        rows[tag], res[tag] = search_row(eng, q, gt, tag, h=32, tag="pgraphs")
+    adc = catalyst.adc(cm, cat_codes, q)
+    plain = ref.adc_scan_batch_ref(cat_codes, cat_lut(q))
+    adc_equal = bool(torch.equal(adc, plain))
+    del plain
+    rows["catalyst_exhaustive_adc_recall"] = recall_at_k(
+        torch.topk(adc, 10, dim=1, largest=False).indices, gt, 10)
+    del adc
+    log(f"[pgraphs] (d) catalyst adc equals the plain adc_scan_batch on {nq} queries: "
+        f"{adc_equal}; exhaustive ADC recall@10 {rows['catalyst_exhaustive_adc_recall']:.4f}")
+    check(losses_finite, "(d) a Catalyst training loss is not finite")
+    check(adc_equal, "(d) catalyst.adc differs from the plain adc_scan_batch")
+    check(rows["vamana_catalyst_hybrid"]["recall"] >= rows["vamana_catalyst_inmemory"]["recall"],
+          "(d) Catalyst's HybridEngine recall is below its InMemoryEngine recall")
+    checks["d"] = True
+
+    # (c) each graph's own recall under exact routing (HNSW from its descent)
+    ex = beam.make_exact_dist_fn(ops.pad_sentinel_row(ds.base))
+    exact = {}
+    for gname, g, ent in (("hnsw", h.base, entries), ("nsg", g_nsg, g_nsg.medoid)):
+        rx = beam.beam_search(g.neighbors, ent, q, ex, h=32, max_steps=512)
+        exact[gname] = recall_at_k(rx.ids[:, :10], gt, 10)
+    del ex, rx
+    log(f"[pgraphs] (c) recall@10 under exact routing (h=32): HNSW {exact['hnsw']:.4f} "
+        f"(floor {MIN_EXACT_RECALL_HNSW}), NSG {exact['nsg']:.4f} (floor {MIN_EXACT_RECALL_NSG})")
+    check(exact["hnsw"] >= MIN_EXACT_RECALL_HNSW,
+          f"(c) HNSW routes badly: exact recall@10 {exact['hnsw']:.4f}")
+    check(exact["nsg"] >= MIN_EXACT_RECALL_NSG,
+          f"(c) NSG routes badly: exact recall@10 {exact['nsg']:.4f}")
+    checks["c"] = True
+
+    busy = device_busy(lambda: engines["hnsw_pq"].search(q, k=10, h=32),
+                       nq / rows["hnsw_pq"]["qps"], label="HNSW-PQ InMemoryEngine")
+    rows["hnsw_pq"]["busy_share"] = busy["busy_share"]
+    rows["hnsw_pq"]["kernel_in_search"] = in_search(busy, "hop_adc_kernel<", kernels["hop_adc"],
+                                                    "HNSW-PQ InMemoryEngine")
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    # (e) the phase ran its kernels
+    for name in ("pq_pairwise", "hop_adc", "adc_scan_batch"):
+        check(counts[name] > 0, f"(e) kernel {name} was not launched by the pgraphs phase")
+    checks["e"] = True
+    log(f"[pgraphs] launches: { {k: v for k, v in counts.items() if v} }; peak device memory "
+        f"{peak_gb:.2f} GiB; checks {checks}")
+    return dict(times=times, build=build, cost=cost, rows=rows, exact_recall=exact,
+                catalyst_losses=[float(losses[0]), float(losses[-1])], checks=checks,
+                launches=counts, peak_gib=peak_gb,
+                busy={k: v for k, v in busy.items() if k != "per_kernel"})
 
 
 # --------------------------------------------------------------------------
@@ -3084,7 +3439,6 @@ def main() -> int:
     t0 = time.perf_counter()
     phases["retrieval"] = retrieval_path(ds, cfg, params, rpq_codes)
     log(f"[retrieval] done in {time.perf_counter() - t0:.1f} s")
-    del params, rpq_codes
     t0 = time.perf_counter()
     phases["adaptive"] = adaptive_path(ds, gt, graph, pq_model, pq_codes, res_main,
                                        fs4_model, fs4_packed)
@@ -3103,7 +3457,15 @@ def main() -> int:
     phases["sharded"] = sharded_path(args, ds, gt, graph, pq_model, pq_codes, fs4_model,
                                      fs4_packed, result["recall"]["inmemory"], kernels)
     log(f"[sharded] done in {time.perf_counter() - t0:.1f} s")
-    del ds, gt, graph, pq_codes, fs4_packed, res_main
+    del fs4_packed, res_main
+    t0 = time.perf_counter()
+    from repro_torch.core.trainer import to_model
+
+    phases["pgraphs"] = pgraphs_path(
+        args, ds, gt, graph, pq_model, pq_codes, to_model(cfg, params), rpq_codes, kernels,
+        {"pq": result["times"]["train_pq"], "rpq": phases["train"]["fit_s"]})
+    log(f"[pgraphs] done in {time.perf_counter() - t0:.1f} s")
+    del ds, gt, graph, pq_codes, params, rpq_codes
     for name, row in kernels.items():
         row["launches"] = sum(p["launches"][name] for p in phases.values())
     log(f"[total] {time.perf_counter() - t_start:.1f} s")

@@ -14,7 +14,9 @@ from repro_torch.common.optim import OptState
 from repro_torch.core.quantizer import RPQParams
 from repro_torch.device import resolve_device
 from repro_torch.graphs.adjacency import Graph
+from repro_torch.graphs.hnsw import HNSW
 from repro_torch.pq.base import QuantizerModel
+from repro_torch.pq.catalyst import CatalystModel, CatalystParams
 from repro_torch.pq.pack import QuantizedLUT
 
 
@@ -69,3 +71,31 @@ def opt_state_from_numpy(step, m, v, *, device=None) -> OptState:
                                       device=dev),
                     inner=(rpq_params_from_numpy(*m, device=dev),
                            rpq_params_from_numpy(*v, device=dev)))
+
+
+def hnsw_from_numpy(base_nbrs, base_medoid, layer_nbrs, layer_medoids,
+                    members, top_entry, *, device=None) -> HNSW:
+    """A ``repro.graphs.hnsw.HNSW``'s arrays — layer 0's adjacency and
+    medoid, each upper layer's adjacency and medoid (lists, bottom up),
+    each upper layer's sorted global member ids, the top layer's entry — →
+    the port's HNSW."""
+    dev = resolve_device(device)
+    layers = tuple(graph_from_numpy(nb, md, device=dev)
+                   for nb, md in zip(layer_nbrs, layer_medoids))
+    memb = tuple(torch.from_numpy(np.array(mb, dtype=np.int64)).to(dev)
+                 for mb in members)
+    return HNSW(base=graph_from_numpy(base_nbrs, base_medoid, device=dev),
+                layers=layers, members=memb,
+                top_entry=torch.tensor(int(np.asarray(top_entry)), device=dev))
+
+
+def catalyst_from_numpy(w1, b1, w2, b2, r, codebooks, *,
+                        device=None) -> CatalystModel:
+    """A ``repro.pq.catalyst.CatalystModel``'s arrays — the MLP's weights
+    and biases, then its PQ's rotation and codebooks — → the port's (f32)."""
+    dev = resolve_device(device)
+    as_f32 = lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+    net = CatalystParams(w1=as_f32(w1), b1=as_f32(b1), w2=as_f32(w2),
+                         b2=as_f32(b2))
+    return CatalystModel(net=net, pq=quantizer_from_numpy(r, codebooks,
+                                                          device=dev))

@@ -37,18 +37,21 @@ def vamana_draws(generator: torch.Generator, n: int, r: int, passes: int
 
 def build_vamana(x: torch.Tensor, *, generator: torch.Generator, r: int = 32,
                  l: int = 64, alpha: float = 1.2, passes: int = 2,
-                 batch: int = 1024, device=None) -> Graph:
+                 batch: int = 1024, verbose: bool = False,
+                 device=None) -> Graph:
     """Build a Vamana PG over x (N, D) on ``device`` (default ``cuda``).
-    Returns a padded-adjacency Graph."""
+    Returns a padded-adjacency Graph. ``verbose`` prints each pass's mean
+    degree, as the reference does."""
     dev = resolve_device(device)
     init, orders = vamana_draws(generator, x.shape[0], r, passes)
     return build_vamana_from_draws(x.to(dev), init, orders, r=r, l=l,
-                                   alpha=alpha, batch=batch)
+                                   alpha=alpha, batch=batch, verbose=verbose)
 
 
 def build_vamana_from_draws(x: torch.Tensor, init_neighbors: np.ndarray,
                             orders, *, r: int = 32, l: int = 64,
-                            alpha: float = 1.2, batch: int = 1024) -> Graph:
+                            alpha: float = 1.2, batch: int = 1024,
+                            verbose: bool = False) -> Graph:
     """The build itself, on x's device, from given draws (see module doc):
     pass p visits ``orders[p]`` with α = 1 on the first pass and ``alpha``
     after it."""
@@ -77,6 +80,9 @@ def build_vamana_from_draws(x: torch.Tensor, init_neighbors: np.ndarray,
             g[ids] = prune_from_vectors(xp, ids, cand, a, r, n)
         # reverse-edge pass: j gains candidate i for every edge i→j
         g = _reverse_pass(xp, g, a, r, batch)
+        if verbose:
+            deg = (g < n).sum(dim=1).float().mean()
+            print(f"[vamana] pass {p}: mean degree {float(deg):.1f}")
 
     return Graph(neighbors=g, medoid=medoid)
 

@@ -44,8 +44,10 @@ partial-LUT lower bound over ``m_prefix`` subspaces, ``max_rounds`` /
 re-ranks a count of candidates, or none (the degradation ladder's L4).
 ``entries=1, prune_eps=0`` and no budget are bit-identical to the classic
 beam. The streaming engine (``index/engine.py``) reuses ``_bulk_adc``,
-``_prune_cfg`` and ``topk_lower``. Still to port: HNSW descent
-(``entry_fn``, with ``graphs/hnsw.py``).
+``_prune_cfg`` and ``topk_lower`` (which lives in ``graphs/knn.py``).
+``InMemoryEngine`` and ``HybridEngine`` take ``entry_fn(queries) → (Q,)``
+entry ids (HNSW's ``descend``); an entry set (``entries > 1``) wins over
+it, and without either the beam starts at the medoid.
 """
 
 from __future__ import annotations
@@ -59,6 +61,7 @@ from repro_torch.device import resolve_device, visible_cuda_devices
 from repro_torch.dist import retry as _retry
 from repro_torch.dist.fault import partial_merge, resolve_quorum
 from repro_torch.graphs.adjacency import Graph
+from repro_torch.graphs.knn import topk_lower
 from repro_torch.graphs.partition import PartitionedGraph, block_diagonal
 from repro_torch.kernels import ops as kops
 from repro_torch.pq.pack import QuantizedLUT, unpack_codes
@@ -77,28 +80,6 @@ def _bulk_adc(codes: torch.Tensor, luts) -> torch.Tensor:
     if _is_packed(luts):
         return kops.adc_scan_fs(codes, luts.lut, luts.scale, luts.bias)
     return kops.adc_scan_batch(codes, luts)
-
-
-def topk_lower(d: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The k smallest of each row of (Q, N) ``d``, ascending, ties to the
-    LOWER index — the order of ``lax.top_k(-d, k)``, which ``torch.topk``
-    does not promise (and fs4 distances tie often).
-
-    ``torch.topk`` finds each row's k-th value, then only the entries at or
-    below it (≥ k per row, a few more on ties) are stably sorted by (row,
-    value); their column order is ascending already. Returns (values
-    (Q, k), indices (Q, k) int64)."""
-    q = d.shape[0]
-    thr = torch.topk(d, k, dim=1, largest=False).values[:, -1:]   # sorted
-    rows, cols = torch.nonzero(d <= thr, as_tuple=True)   # row-major order
-    vals = d[rows, cols]
-    order = torch.sort(vals, stable=True).indices
-    order = order[torch.sort(rows[order], stable=True).indices]
-    vals, cols = vals[order], cols[order]
-    counts = torch.bincount(rows, minlength=q)
-    start = torch.cumsum(counts, 0) - counts
-    pos = start[:, None] + torch.arange(k, device=d.device)[None, :]
-    return vals[pos], cols[pos]
 
 
 def _lut_m(luts) -> int:
@@ -123,8 +104,8 @@ def _prune_cfg(luts, prune_eps: float, m_prefix: int) -> tuple[int, int]:
 class _GraphRouting:
     """The routing half shared by the two graph engines: the resident
     codes, the lazy seed index, and one ADC beam search with the
-    adaptive-routing knobs. Subclasses set ``graph``, ``codes`` and
-    ``lut_fn`` and call :meth:`_init_routing`."""
+    adaptive-routing knobs. Subclasses set ``graph``, ``codes``,
+    ``lut_fn`` and ``entry_fn`` and call :meth:`_init_routing`."""
 
     def _init_routing(self) -> None:
         self._codes_p = kops.pad_sentinel_row(self.codes)
@@ -141,15 +122,19 @@ class _GraphRouting:
             self._seedix = dataclasses.replace(ix, codes=self.codes)
         return self._seedix
 
-    def _route(self, luts, *, h, max_steps, expand, entries, prune_eps,
-               m_prefix, max_rounds, max_n_dist) -> SearchResult:
+    def _route(self, luts, queries, *, h, max_steps, expand, entries,
+               prune_eps, m_prefix, max_rounds, max_n_dist) -> SearchResult:
         """The beam over the graph, with ``n_dist`` counting the seed
-        probe's scored candidates."""
+        probe's scored candidates. The entry: a seeded set when ``entries >
+        1``, else ``entry_fn(queries)`` when the engine has one, else the
+        medoid (the reference's precedence)."""
         seed_cost = 0
         if entries > 1:
             ix = self._seed_index(luts)
             entry = ix.seed_entries(luts, entries)
             seed_cost = ix.n_candidates
+        elif self.entry_fn is not None:
+            entry = self.entry_fn(queries)
         else:
             entry = self.graph.medoid
         return _adc_beam(self.graph.neighbors, self._codes_p, entry, luts,
@@ -187,6 +172,7 @@ class InMemoryEngine(_GraphRouting):
     codes: torch.Tensor               # (N, M) uint8 codes, or fs4 (N, ceil(M/2))
     lut_fn: Callable                  # (Q, D) queries -> LUTs or QuantizedLUT
     device: object = None             # default cuda
+    entry_fn: Optional[Callable] = None  # queries -> (Q,) entries (HNSW descend)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -202,10 +188,10 @@ class InMemoryEngine(_GraphRouting):
         §13); an exhausted query returns best-so-far with
         ``truncated=True``."""
         queries = queries.to(self.device)
-        res = self._route(self.lut_fn(queries), h=h, max_steps=max_steps,
-                          expand=expand, entries=entries, prune_eps=prune_eps,
-                          m_prefix=m_prefix, max_rounds=max_rounds,
-                          max_n_dist=max_n_dist)
+        res = self._route(self.lut_fn(queries), queries, h=h,
+                          max_steps=max_steps, expand=expand, entries=entries,
+                          prune_eps=prune_eps, m_prefix=m_prefix,
+                          max_rounds=max_rounds, max_n_dist=max_n_dist)
         return SearchResult(res.ids[:, :k], res.dists[:, :k], res.hops,
                             res.n_dist, res.rounds, res.truncated)
 
@@ -223,6 +209,7 @@ class HybridEngine(_GraphRouting):
     vectors: torch.Tensor             # (N, D) original vectors ("on SSD")
     io_latency_s: float = 100e-6      # per 4 KiB node read (NVMe-class)
     device: object = None             # default cuda
+    entry_fn: Optional[Callable] = None  # queries -> (Q,) entries (HNSW descend)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -244,10 +231,10 @@ class HybridEngine(_GraphRouting):
         rerank = h if rerank <= 0 else rerank
         k = min(k, rerank)  # cannot return more results than candidates
         queries = queries.to(self.device)
-        res = self._route(self.lut_fn(queries), h=h, max_steps=max_steps,
-                          expand=expand, entries=entries, prune_eps=prune_eps,
-                          m_prefix=m_prefix, max_rounds=max_rounds,
-                          max_n_dist=max_n_dist)
+        res = self._route(self.lut_fn(queries), queries, h=h,
+                          max_steps=max_steps, expand=expand, entries=entries,
+                          prune_eps=prune_eps, m_prefix=m_prefix,
+                          max_rounds=max_rounds, max_n_dist=max_n_dist)
         if skip_rerank:
             ids, dists = res.ids[:, :k], res.dists[:, :k]
         else:

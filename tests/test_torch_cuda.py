@@ -516,3 +516,51 @@ def test_disk_search_on_the_card_equals_the_cpu_route(dev, tmp_path, layout, kw)
     for name in ("ids", "dists", "hops", "n_dist", "rounds", "truncated"):
         torch.testing.assert_close(getattr(card, name).cpu(), getattr(host, name),
                                    rtol=0, atol=0, msg=name)
+
+
+def test_hnsw_descent_and_catalyst_serving_on_the_card(dev):
+    """An HNSW built on the CPU: its descent on the card picks the CPU's
+    entries (exact distances summed in another order: ≥ 98% of queries),
+    and an ``entry_fn`` search from the CPU's entries over tie-free codes
+    equals the CPU route bit for bit through ``hop_adc``. A small Catalyst
+    trained on the CPU: its LUTs through ``pq_pairwise`` on the card within
+    1e-5 of the CPU's, its codes equal on ≥ 99% of rows, and ``adc``
+    through ``adc_scan_batch`` equal to the plain version on the same LUTs."""
+    from repro_torch.graphs import build_hnsw, descend
+    from repro_torch.pq import catalyst
+    from repro_torch.search.engine import InMemoryEngine
+
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(3000, 16)).astype(np.float32))
+    q = torch.from_numpy(rng.normal(size=(64, 16)).astype(np.float32))
+    h = build_hnsw(x, generator=torch.Generator().manual_seed(0), m=8, device="cpu")
+    entries = descend(h, q, x)
+    on_card = descend(h.to(dev), q.to(dev), x.to(dev))
+    assert on_card.is_cuda and float((on_card.cpu() == entries).float().mean()) >= 0.98
+    codes = rng.integers(0, 256, (3000, 8)).astype(np.uint8)
+    while np.unique(codes, axis=0).shape[0] != 3000:  # pragma: no cover
+        codes = rng.integers(0, 256, (3000, 8)).astype(np.uint8)
+    luts = torch.from_numpy(rng.random((64, 8, 256)).astype(np.float32))
+    res = {}
+    for where in (dev, torch.device("cpu")):
+        eng = InMemoryEngine(h.base, torch.from_numpy(codes), lambda _q, t=luts.to(where): t,
+                             device=where, entry_fn=lambda qq: entries.to(qq.device))
+        ops.reset_launch_counts()
+        res[where.type] = eng.search(q, k=10, h=32)
+        assert (ops.launch_counts()["hop_adc"] > 0) == (where.type == "cuda")
+    for name in ("ids", "dists", "hops", "n_dist", "rounds", "truncated"):
+        torch.testing.assert_close(getattr(res["cuda"], name).cpu(), getattr(res["cpu"], name),
+                                   rtol=0, atol=0, msg=name)
+
+    model, _ = catalyst.train_catalyst(x, 4, 64, generator=torch.Generator().manual_seed(1),
+                                       d_out=16, steps=5, batch=64, device="cpu")
+    card = model.to(dev)
+    ops.reset_launch_counts()
+    lut_card = catalyst.build_lut(card, q.to(dev))
+    torch.testing.assert_close(lut_card.cpu(), catalyst.build_lut(model, q), rtol=1e-5, atol=1e-5)
+    c_card = catalyst.encode(card, x.to(dev))
+    assert float((c_card.cpu() == catalyst.encode(model, x)).all(dim=1).float().mean()) >= 0.99
+    torch.testing.assert_close(catalyst.adc(card, c_card, q.to(dev)),
+                               ref.adc_scan_batch_ref(c_card, lut_card), rtol=0, atol=0)
+    counts = ops.launch_counts()
+    assert counts["pq_pairwise"] > 0 and counts["adc_scan_batch"] > 0
