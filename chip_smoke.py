@@ -39,7 +39,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    int32 codes; M=208, K=256 on uint8; fs4 ``adc_scan_fs`` at M=128 and
    201, exactly), each against its plain version, and the int32 variants
    at 1000 × 1M, M=16, K=512: the timed outputs held against their plain
-   versions, and their times;
+   versions, and their times; ``adc_scan_batch_i32`` beside the HBM bytes
+   its plan should move (``adc_batch_i32_bytes``) and its diagnostic rows
+   (``adc_batch_rows``: int32 at K=512 at 100k, 250k and 1M rows, int32
+   against uint8 at K=256, and the streaming round's 1000 × 50,000 delta
+   shape, each bit for bit);
 4. small reference: the unit-test dataset served on the card and on the CPU
    (the plain versions) from the same graph and quantizer must agree; at
    S=4, one partition built on the CPU served by ``ShardedGraphEngine``
@@ -229,7 +233,9 @@ result. It imports nothing of JAX and nothing of the JAX package.
 ``--retrieval-us [--src DIR]`` runs none of this: it times phase 9's
 per-query loop alone (``retrieval_us``) on seeded codes, with the
 ``repro_torch`` of ``DIR``, and prints one JSON line, so two trees (one
-unpacked by ``git archive``) compare in one chip call.
+unpacked by ``git archive``) compare in one chip call. ``--adc-batch
+[--src DIR]`` does the same for ``adc_scan_batch``'s diagnostic rows
+(``adc_batch_rows``, each held bit for bit against its plain version).
 """
 
 from __future__ import annotations
@@ -995,7 +1001,8 @@ def wide_parity_and_timing(n_base: int, n_query: int) -> dict:
     in f32 on int32 codes; M=208, K=256 on uint8 codes; fs4 at M=128,
     exactly), then the four int32 variants at the main path's N, Q and
     M=16, K=512: each timed output against its plain version, and the
-    times beside their bounds, plain versions and library calls."""
+    times beside their bounds, plain versions and library calls, with
+    ``adc_scan_batch_i32``'s planned HBM bytes and diagnostic rows."""
     import torch
 
     from repro_torch.kernels import adc_scan as kadc
@@ -1089,13 +1096,22 @@ def wide_parity_and_timing(n_base: int, n_query: int) -> dict:
     plain_ms = cuda_ms(lambda: ref.adc_scan_batch_ref(codes_full, luts), iters=2, warmup=1)
     lib_ms, lib_err = library_time(codes_full, luts, want.T)
     del want
+    hbm = adc_batch_i32_bytes(n_base, n_query, m, k)
+    log(f"[time] adc_scan_batch_i32 HBM bytes its plan should move at N={n_base}: int32 "
+        f"codes read once {hbm['codes']}, packed codes written and read once "
+        f"{hbm['packed']} each, LUTs staged {hbm['lut_stages']} times {hbm['luts']} (from "
+        f"L2 where they stay), output {hbm['out']}: {hbm['total'] / HBM_BYTES_S * 1e3:.4f} "
+        f"ms at 3.35 TB/s, beside the bound {b_ms:.4f} ms (each input read once)")
+    diagnostics = adc_batch_rows(n_query)
     rows.append(dict(
         name="adc_scan_batch_i32", route="cuda", source="src/repro_torch/kernels/csrc/adc_scan.cu",
         replaces="src/repro/kernels/adc_scan.py:131",
         shape=f"codes ({n_base},{m}) int32 x luts ({n_query},{m},{k})",
-        max_abs_err=errs["adc_scan_batch_i32"], ms=ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, library_err=lib_err,
-        library_call=LIBRARY_CALL))
+        max_abs_err=max(errs["adc_scan_batch_i32"],
+                        *(r["max_abs_err"] for r in diagnostics if r["codes"] == "int32")),
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        library_err=lib_err, library_call=LIBRARY_CALL, hbm_bytes=hbm,
+        diagnostics=diagnostics))
 
     hout = torch.empty(ids.shape, device=dev)
     distinct = int(torch.unique(ids).numel())
@@ -1176,6 +1192,82 @@ def wide_parity_and_timing(n_base: int, n_query: int) -> dict:
             f"{row['plain_ms']:.4f} ms, library {row['library_ms']}, bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}){sector_note(row)}")
     return {row["name"]: row for row in rows}
+
+
+# adc_scan_batch's diagnostic rows at Q=1000, M=16: (case, N, K, code type).
+# (a) int32 at K=512 with the code table in L2 (6.4 and 16 MB) and past it
+# (64 MB); (b) int32 against uint8 codes at K=256, one query tile size (8);
+# (c) int32 at K=256 (8 queries a tile) against K=512 (4); then the
+# streaming round's delta arm, 1000 queries against 50,000 slots at K=512.
+ADC_BATCH_CASES = (
+    ("(a) int32 K=512", 100_000, 512, "int32"),
+    ("(a) int32 K=512", 250_000, 512, "int32"),
+    ("(a) int32 K=512", 1_000_000, 512, "int32"),
+    ("(b) uint8 K=256", 1_000_000, 256, "uint8"),
+    ("(b) int32 K=256", 1_000_000, 256, "int32"),
+    ("(b) uint8 K=256", 250_000, 256, "uint8"),
+    ("(c) int32 K=256", 250_000, 256, "int32"),
+    ("delta int32 K=512", 50_000, 512, "int32"),
+)
+
+
+def adc_batch_i32_bytes(n: int, q: int, m: int, k: int) -> dict:
+    """HBM bytes ``adc_scan_batch`` on (n, m) int32 codes and (q, m, k) LUTs
+    should move as its plan goes (``kernels/adc_scan.py``): the int32 codes
+    read once by the packing, the packed uint16 codes written once and read
+    once (their re-reads, one per query tile, from L2), each block's tile
+    LUTs staged once per tile (an upper bound: the 32 MB of LUTs at 1000 x
+    K=512 may stay in L2), and the (q, n) f32 output. One 768-thread block
+    per SM: a 4-query tile takes 128 KB of the SM's 228 KB."""
+    import torch
+
+    from repro_torch.kernels import adc_scan as kadc
+
+    tq = kadc.query_tile(m, k)
+    tile_bytes = tq * m * k * 4
+    per_sm = max(1, min(2048 // kadc.BATCH_THREADS, (228 * 1024) // (tile_bytes + 1024)))
+    blocks = kadc.grid_blocks(n, q, tq, torch.cuda.get_device_properties(0)
+                              .multi_processor_count * per_sm)
+    stages = kadc.lut_stages(n, q, tq, blocks)
+    out = dict(codes=n * m * 4, packed=kadc.packed_bytes(n, m), lut_stages=stages,
+               luts=stages * tile_bytes, out=4 * q * n)
+    out["total"] = out["codes"] + 2 * out["packed"] + out["luts"] + out["out"]
+    return out
+
+
+def adc_batch_rows(n_query: int = 1000, cases=ADC_BATCH_CASES, seed: int = 24680) -> list:
+    """``adc_scan_batch`` (the bare launch) on seeded uniform codes and
+    LUTs for each of ``cases``: its CUDA-event time over back-to-back
+    launches (each writes a (Q, N) output past the L2), the time per
+    thousand (query, row) pairs, and its bound; each timed output is held
+    against the plain version bit for bit."""
+    import torch
+
+    from repro_torch.kernels import adc_scan as kadc
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    for case, n, k, dtype in cases:
+        m = 16
+        codes = torch.randint(0, k, (n, m), generator=g, device="cuda",
+                              dtype=torch.int32).to(getattr(torch, dtype))
+        luts = torch.rand((n_query, m, k), generator=g, device="cuda") * 20.0
+        out = torch.empty((n_query, n), device="cuda")
+        ms = cuda_ms(lambda: kadc.launch(codes, luts, out), iters=max(5, 5_000_000 // n))
+        err = compare(f"adc_scan_batch {case} N={n} Q={n_query} (the timed output)", out,
+                      ref.adc_scan_batch_ref(codes, luts), rtol=0.0, atol=0.0)
+        b_ms, b_by = bound(codes.numel() * codes.element_size() + 4 * luts.numel()
+                           + 4 * out.numel(), out.numel() * m)
+        rows.append(dict(case=case, n=n, q=n_query, m=m, k=k, codes=dtype,
+                         query_tile=kadc.query_tile(m, k), ms=ms,
+                         ns_per_1000_pairs=ms * 1e9 / (n * n_query), bound_ms=b_ms,
+                         bound_by=b_by, max_abs_err=err))
+        log(f"[adc-batch] {case} N={n} Q={n_query}: {ms:.4f} ms, "
+            f"{rows[-1]['ns_per_1000_pairs']:.4f} ns per 1000 (query, row) pairs, bound "
+            f"{b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of it")
+        del codes, luts, out
+    return rows
 
 
 # --------------------------------------------------------------------------
@@ -3364,11 +3456,14 @@ def main() -> int:
     ap.add_argument("--retrieval-us", action="store_true",
                     help="only time phase 9's per-query loop on seeded 1M x 16 uint8 "
                          "codes, with the repro_torch of --src, and print it as JSON")
+    ap.add_argument("--adc-batch", action="store_true",
+                    help="only time adc_scan_batch's diagnostic rows (adc_batch_rows), "
+                         "with the repro_torch of --src, and print them as JSON")
     ap.add_argument("--src", default=SRC,
-                    help="the src directory --retrieval-us imports repro_torch from "
-                         "(default: this checkout's)")
+                    help="the src directory --retrieval-us and --adc-batch import "
+                         "repro_torch from (default: this checkout's)")
     args = ap.parse_args()
-    src = args.src if args.retrieval_us else SRC
+    src = args.src if args.retrieval_us or args.adc_batch else SRC
 
     if not os.path.isdir(os.path.join(src, "repro_torch")):
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -3391,6 +3486,12 @@ def main() -> int:
     if args.retrieval_us:
         _build.build(("adc_scan",))
         print(json.dumps({"src": src, "device": smi, **retrieval_us()}))
+        return 0
+    if args.adc_batch:
+        for line in _build.build(("adc_scan",)).get("adc_scan", "").splitlines():
+            if "Used" in line or "spill" in line or "properties for" in line:
+                log(f"[build] adc_scan: {line.strip()}")
+        print(json.dumps({"src": src, "device": smi, "rows": adc_batch_rows()}))
         return 0
 
     t0 = time.perf_counter()

@@ -25,15 +25,32 @@
 // load instructions. The flat (tile, row) space is cut into one contiguous
 // range per block (gridDim.x = SMs x resident blocks), so a block stages a
 // tile's LUT once per long row span (once or twice per launch at 1000 x
-// 1M), and no block waits on another. A lane reads its row's codes as one
-// 16-byte load per 16 sub-codes when M % 16 == 0 and the codes are 16-byte
-// aligned (byte loads otherwise), and loads its next row's first 16 codes
-// while it scores this one. Outputs go out as runs of 16 rows (64 bytes)
-// per query with streaming stores, so the 4 GB output does not evict the
-// codes from L2. Blocks of 768 threads (one per SM at 128 KB) beat 512 and
-// 1024 on the H100. Sums stay in j order from 0.f, so every output equals
-// the plain version bit for bit. The plan (TQ, the grid, each block's
-// range) is mirrored in adc_scan.py.
+// 1M), and no block waits on another; the stage is one 4-byte cp.async per
+// entry, many in flight per thread. A lane reads its row's uint8 codes as
+// one 16-byte load per 16 sub-codes when M % 16 == 0 and the codes are
+// 16-byte aligned (byte loads otherwise), and loads its next row's first 16
+// codes while it scores this one. Outputs go out as runs of 16 rows (64
+// bytes) per query with streaming stores, so the 4 GB output does not evict
+// the codes from L2. Blocks of 768 threads (one per SM at 128 KB) beat 512
+// and 1024 on the H100. Sums stay in j order from 0.f, so every output
+// equals the plain version bit for bit. The plan (TQ, the grid, each
+// block's range, the row loads) is mirrored in adc_scan.py.
+//
+// int32 codes (K > 256): at K=512 a query's LUT is 32 KB, so a tile holds 4
+// queries, each lane scores a row alone, and a quarter-warp meets 8 rows
+// (~2.6 wavefronts a 16-byte lookup, the birthday bound over 8 slots). Each
+// tile re-reads every row, so the codes cross from L2 once per 4 queries.
+// Read as 16 four-byte loads a row, or as four 16-byte loads (one row a
+// lane, 32 rows over 16 cache lines a load), they cost more than the
+// lookups (13.0 and 7.5 ms at 1000 x 1M on an H100, against 4.4 ms for
+// uint8 at K=256: chip_smoke.py --adc-batch). So a first kernel (pack_u16_kernel) packs the int32
+// codes into uint16 (the wrapper accepts no K of 2^16 or more: one
+// subspace's LUT would pass shared memory), vector-major in groups of 32
+// rows, and the scan reads a warp's 32 rows as one contiguous 512-byte run
+// per 16-byte vector, 2 vectors a row at M=16, with the next row's loaded
+// ahead: 5.4 ms, the lookups' own floor at 4 queries a tile. Ordering the
+// work by row chunks, so that the 64 MB table is read from HBM about once,
+// measured no faster: the table's re-reads hit L2 already.
 
 // adc_scan_kernel (one query) replaces repro/kernels/adc_scan.py::adc_scan
 // (Pallas, _adc_scan_kernel), the retrieval scorer's scan:
@@ -61,8 +78,9 @@
 // device and LUT size (resident_blocks), not on every launch.
 
 // Both kernels take uint8 codes (K <= 256) or int32 codes (any K, the
-// reference's canonical dtype for K > 256): one template over the code type,
-// with the batch kernel's 16-byte row loads for uint8 only. A launch covers
+// reference's canonical dtype for K > 256): the one-query scan as one
+// template over the code type, the batch scan over uint8 rows or the
+// uint16 rows packed from int32 ones. A launch covers
 // the subspaces [j0, j0 + mc) of rows of ldc codes: the wrapper
 // (adc_scan.py) splits M into chunks whose f32 LUT slice fits in shared
 // memory and launches once per chunk, each launch after the first starting
@@ -117,27 +135,117 @@ __device__ __forceinline__ float lane_of(float4 v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-// TQ queries per tile (1, 2, 4 or 8); kVec16: uint8 codes, mc and ldc
-// multiples of 16, 16-byte aligned rows; kAccumulate: a chunk after the
-// first, starting from the sums in `out` (a template parameter, so the
-// one-chunk launch of the main path carries no trace of it).
-template <int TQ, bool kVec16, bool kAccumulate, typename CodeT>
+// Copies the f32 LUTs of queries q0 .. q0 + nq - 1 (mk entries each, ldl
+// apart) into tab interleaved by query, tab[e * TQ + t] = luts[q0 + t][e],
+// zeros past nq, by 4-byte cp.async: a warp reads 8 entries of 4 queries
+// (four 32-byte sectors) and writes 128 consecutive bytes. Returns without
+// waiting; the block meets the copy at wait_staged().
+template <int TQ>
+__device__ __forceinline__ void stage_tile(const float* __restrict__ luts, int64_t ldl,
+                                           int q0, int nq, int mk, float* tab) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(tab));
+  for (int i = threadIdx.x; i < mk * TQ; i += blockDim.x) {
+    const int t = i % TQ;
+    const float* src = t < nq ? luts + static_cast<int64_t>(q0 + t) * ldl + i / TQ : luts;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(d + 4u * i), "l"(src), "r"(t < nq ? 4 : 0) : "memory");
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// int32 codes reach the batch kernel packed as uint16 (any K the wrapper
+// accepts is below 2^16), vector-major in groups of kGroup rows: the 16-byte
+// vector v (codes 8v .. 8v + 7) of row r sits at uint4 index
+// ((r / kGroup) * nv + v) * kGroup + r % kGroup, zeros past m and past n. A
+// warp's 32 consecutive rows then read each vector as 512 contiguous bytes.
+constexpr int kGroup = 32;
+constexpr int kPackThreads = 256;
+
+__global__ void __launch_bounds__(kPackThreads)
+pack_u16_kernel(const int32_t* __restrict__ codes, int64_t n, int ldc, int m, int nv,
+                uint4* __restrict__ packed) {
+  const int64_t total = (n + kGroup - 1) / kGroup * kGroup * nv;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
+       i += stride) {
+    const int64_t g = i / (kGroup * nv);
+    const int rem = static_cast<int>(i - g * kGroup * nv);
+    const int v = rem / kGroup;
+    const int64_t row = g * kGroup + rem % kGroup;
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+    if (row < n) {
+      const int32_t* c = codes + row * ldc + 8 * v;
+#pragma unroll
+      for (int b = 0; b < 8; ++b)
+        if (8 * v + b < m)
+          w[b >> 1] |= (static_cast<uint32_t>(__ldg(c + b)) & 0xFFFFu) << (16 * (b & 1));
+    }
+    packed[i] = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// The 16-byte vector v of code row `row`: uint8 rows of ldc codes, or
+// uint16 rows packed by pack_u16_kernel (nv vectors a row).
+template <typename CodeT>
+__device__ __forceinline__ uint4 row_vec(const CodeT* codes, int64_t row, int ldc, int nv,
+                                         int v) {
+  if constexpr (sizeof(CodeT) == 1)
+    return __ldg(reinterpret_cast<const uint4*>(codes + row * ldc) + v);
+  else
+    return __ldg(reinterpret_cast<const uint4*>(codes) +
+                 ((row / kGroup) * nv + v) * kGroup + row % kGroup);
+}
+
+// acc[i] += the tile's entry of query i for each code of one 16-byte vector
+// w (16 uint8 or 8 uint16 codes of subspaces j0, j0 + 1, ...; uint16 ones
+// at or past m are padding), in j order; tb: the lane's first query in the
+// interleaved table.
+template <typename CodeT, int TQ, int kVec>
+__device__ __forceinline__ void add_codes(float (&acc)[kVec], uint4 w, int j0, int m,
+                                          const float* tb, int k) {
+  using Vec = typename FloatVec<kVec>::T;
+  const uint32_t x[4] = {w.x, w.y, w.z, w.w};
+  constexpr int kPer = 16 / sizeof(CodeT);
+#pragma unroll
+  for (int b = 0; b < kPer; ++b) {
+    if (sizeof(CodeT) == 1 || j0 + b < m) {  // uint8 rows fill whole vectors
+      const int code = sizeof(CodeT) == 1
+                           ? static_cast<int>((x[b >> 2] >> (8 * (b & 3))) & 0xFFu)
+                           : static_cast<int>((x[b >> 1] >> (16 * (b & 1))) & 0xFFFFu);
+      const Vec e = *reinterpret_cast<const Vec*>(tb + ((j0 + b) * k + code) * TQ);
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) acc[i] += lane_of(e, i);
+    }
+  }
+}
+
+// TQ queries per tile (1, 2, 4 or 8). CodeT uint8_t: rows of ldc codes,
+// read as 16-byte vectors with the first of a lane's next row loaded while
+// it scores this one (kPre = 1; rows on 16 bytes, m % 16 == 0), or code by
+// code (kPre = 0). CodeT uint16_t: rows packed by pack_u16_kernel, the
+// first kPre (1, 2 or 4) vectors of the next row loaded ahead, the rest
+// during the sum. kAccumulate: a chunk of subspaces after the first,
+// starting from the sums in `out` (a template parameter, so the one-chunk
+// launch of the main path carries no trace of it).
+template <int TQ, int kPre, bool kAccumulate, typename CodeT>
 __global__ void __launch_bounds__(kBatchThreads)
 adc_scan_batch_kernel(const CodeT* __restrict__ codes, int64_t n, int ldc,
                       int m, const float* __restrict__ luts, int64_t ldl,
                       int q, int k, float* __restrict__ out) {
   constexpr int kVec = TQ < 4 ? TQ : 4;      // queries per shared load
   constexpr int kLanesPerRow = TQ / kVec;    // 2 at TQ = 8, else 1
-  using Vec = typename FloatVec<kVec>::T;
+  constexpr int kPer = 16 / sizeof(CodeT);   // codes per 16-byte vector
+  constexpr int kRing = kPre > 0 ? kPre : 1;
   extern __shared__ float4 tab_raw[];        // [j][c][TQ]
   float* tab = reinterpret_cast<float*>(tab_raw);
-  const int mk = m * k;
   const int64_t work = static_cast<int64_t>((q + TQ - 1) / TQ) * n;
   const int64_t lo = work * blockIdx.x / gridDim.x;
   const int64_t hi = work * (blockIdx.x + 1) / gridDim.x;
   const int rows_per_pass = blockDim.x / kLanesPerRow;
   const int slot = threadIdx.x / kLanesPerRow;
-  const int half = threadIdx.x % kLanesPerRow;
+  const int t0 = (threadIdx.x % kLanesPerRow) * kVec;  // the lane's first query
+  const float* tb = tab + t0;
+  const int nv = (m + kPer - 1) / kPer;                // vectors a row
   int64_t staged = -1;
 
   for (int64_t f = lo; f < hi;) {
@@ -148,64 +256,47 @@ adc_scan_batch_kernel(const CodeT* __restrict__ codes, int64_t n, int ldc,
     const int nq = q - q0 < TQ ? q - q0 : TQ;
     if (tile != staged) {  // uniform across the block: f, lo, hi are
       __syncthreads();     // every lane is done with the previous table
-      for (int e = threadIdx.x; e < mk; e += blockDim.x) {
-        float v[TQ];
-#pragma unroll
-        for (int t = 0; t < TQ; ++t)
-          v[t] = t < nq ? luts[static_cast<int64_t>(q0 + t) * ldl + e] : 0.f;
-#pragma unroll
-        for (int h = 0; h < kLanesPerRow; ++h) {
-          Vec w;
-          float* wf = reinterpret_cast<float*>(&w);
-#pragma unroll
-          for (int i = 0; i < kVec; ++i) wf[i] = v[h * kVec + i];
-          *reinterpret_cast<Vec*>(tab + e * TQ + h * kVec) = w;
-        }
-      }
-      __syncthreads();
+      stage_tile<TQ>(luts, ldl, q0, nq, m * k, tab);
+      wait_staged();
       staged = tile;
     }
-    const float* tb = tab + half * kVec;
-    // the lane's next row's first 16 codes are loaded while this one is scored
-    uint4 nxt = make_uint4(0, 0, 0, 0);
-    if (kVec16 && r0 + slot < r1)
-      nxt = __ldg(reinterpret_cast<const uint4*>(codes + (r0 + slot) * ldc));
+    uint4 nxt[kRing];
+#pragma unroll
+    for (int v = 0; v < kPre; ++v)
+      nxt[v] = r0 + slot < r1 && v < nv ? row_vec(codes, r0 + slot, ldc, nv, v)
+                                        : make_uint4(0u, 0u, 0u, 0u);
     for (int64_t row = r0 + slot; row < r1; row += rows_per_pass) {
-      const CodeT* c = codes + row * ldc;
-      const uint4 cur = nxt;
-      if (kVec16 && row + rows_per_pass < r1)
-        nxt = __ldg(reinterpret_cast<const uint4*>(codes + (row + rows_per_pass) * ldc));
+      uint4 cur[kRing];
+      const int64_t next = row + rows_per_pass;
+#pragma unroll
+      for (int v = 0; v < kPre; ++v) {
+        cur[v] = nxt[v];
+        nxt[v] = next < r1 && v < nv ? row_vec(codes, next, ldc, nv, v)
+                                     : make_uint4(0u, 0u, 0u, 0u);
+      }
       float acc[kVec];
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) {
-        const int t = half * kVec + i;
-        acc[i] = kAccumulate && t < nq ? out[static_cast<int64_t>(q0 + t) * n + row] : 0.f;
-      }
-      if constexpr (kVec16) {
-        for (int j0 = 0; j0 < m; j0 += 16) {
-          const uint4 cv = j0 ? __ldg(reinterpret_cast<const uint4*>(c + j0)) : cur;
-          const uint32_t w[4] = {cv.x, cv.y, cv.z, cv.w};
+      for (int i = 0; i < kVec; ++i)
+        acc[i] = kAccumulate && t0 + i < nq
+                     ? out[static_cast<int64_t>(q0 + t0 + i) * n + row] : 0.f;
+      if constexpr (kPre > 0) {
 #pragma unroll
-          for (int b = 0; b < 16; ++b) {
-            const int code = (w[b >> 2] >> (8 * (b & 3))) & 0xFF;
-            const Vec e = *reinterpret_cast<const Vec*>(tb + ((j0 + b) * k + code) * TQ);
-#pragma unroll
-            for (int i = 0; i < kVec; ++i) acc[i] += lane_of(e, i);
-          }
-        }
+        for (int v = 0; v < kPre; ++v)
+          if (v < nv) add_codes<CodeT, TQ>(acc, cur[v], v * kPer, m, tb, k);
+        for (int v = kPre; v < nv; ++v)
+          add_codes<CodeT, TQ>(acc, row_vec(codes, row, ldc, nv, v), v * kPer, m, tb, k);
       } else {
+        const CodeT* c = codes + row * ldc;
         for (int j = 0; j < m; ++j) {
-          const Vec e = *reinterpret_cast<const Vec*>(
+          const auto e = *reinterpret_cast<const typename FloatVec<kVec>::T*>(
               tb + (j * k + static_cast<int>(__ldg(c + j))) * TQ);
 #pragma unroll
           for (int i = 0; i < kVec; ++i) acc[i] += lane_of(e, i);
         }
       }
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) {
-        const int t = half * kVec + i;
-        if (t < nq) __stcs(out + static_cast<int64_t>(q0 + t) * n + row, acc[i]);
-      }
+      for (int i = 0; i < kVec; ++i)
+        if (t0 + i < nq) __stcs(out + static_cast<int64_t>(q0 + t0 + i) * n + row, acc[i]);
     }
     f += r1 - r0;
   }
@@ -252,18 +343,12 @@ adc_scan_kernel(const CodeT* __restrict__ codes, int64_t n, int ldc, int mc,
   }
 }
 
-template <int TQ, typename CodeT>
+template <int TQ, int kPre, typename CodeT>
 cudaError_t launch_batch(const CodeT* codes, int64_t n, int ldc, int m,
                          const float* luts, int64_t ldl, int q, int k,
                          bool accumulate, float* out, cudaStream_t stream) {
-  const bool vec16 = sizeof(CodeT) == 1 && m % 16 == 0 && ldc % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(codes) % 16 == 0;
-  constexpr bool kU8 = sizeof(CodeT) == 1;
-  const auto kernel =
-      accumulate ? (vec16 ? adc_scan_batch_kernel<TQ, kU8, true, CodeT>
-                          : adc_scan_batch_kernel<TQ, false, true, CodeT>)
-                 : (vec16 ? adc_scan_batch_kernel<TQ, kU8, false, CodeT>
-                          : adc_scan_batch_kernel<TQ, false, false, CodeT>);
+  const auto kernel = accumulate ? adc_scan_batch_kernel<TQ, kPre, true, CodeT>
+                                 : adc_scan_batch_kernel<TQ, kPre, false, CodeT>;
   const size_t smem = static_cast<size_t>(TQ) * m * k * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -283,26 +368,60 @@ cudaError_t launch_batch(const CodeT* codes, int64_t n, int ldc, int m,
   need = need > tiles ? need : tiles;
   const int64_t cap = static_cast<int64_t>(sms) * per_sm;
   const unsigned blocks = static_cast<unsigned>(need < cap ? need : cap);
-  kernel<<<blocks, kBatchThreads, smem, stream>>>(codes, n, ldc, m, luts, ldl, q, k,
-                                                  out);
+  kernel<<<blocks, kBatchThreads, smem, stream>>>(codes, n, ldc, m, luts, ldl, q, k, out);
   return cudaGetLastError();
 }
 
+template <int TQ, typename CodeT>
+cudaError_t launch_batch_pre(const CodeT* c, int64_t n, int ldc, int m, const float* l,
+                             int64_t ldl, int q, int k, int pre, bool acc, float* o,
+                             cudaStream_t s) {
+  if constexpr (sizeof(CodeT) == 1) {  // a uint8 row holds one vector ahead
+    switch (pre) {
+      case 0: return launch_batch<TQ, 0>(c, n, ldc, m, l, ldl, q, k, acc, o, s);
+      case 1: return launch_batch<TQ, 1>(c, n, ldc, m, l, ldl, q, k, acc, o, s);
+    }
+  } else {  // packed rows: always vectors
+    switch (pre) {
+      case 1: return launch_batch<TQ, 1>(c, n, ldc, m, l, ldl, q, k, acc, o, s);
+      case 2: return launch_batch<TQ, 2>(c, n, ldc, m, l, ldl, q, k, acc, o, s);
+      case 4: return launch_batch<TQ, 4>(c, n, ldc, m, l, ldl, q, k, acc, o, s);
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
 template <typename CodeT>
-cudaError_t launch_batch_tq(const void* codes, int64_t n, int ldc, int m,
-                            const void* luts, int64_t ldl, int q, int k, int tq,
-                            int accumulate, void* out, cudaStream_t s) {
-  const auto* c = static_cast<const CodeT*>(codes);
-  const auto* l = static_cast<const float*>(luts);
-  auto* o = static_cast<float*>(out);
-  const bool acc = accumulate != 0;
+cudaError_t launch_batch_tq(const CodeT* c, int64_t n, int ldc, int m, const float* l,
+                            int64_t ldl, int q, int k, int tq, int pre, bool acc, float* o,
+                            cudaStream_t s) {
   switch (tq) {
-    case 1: return launch_batch<1>(c, n, ldc, m, l, ldl, q, k, acc, o, s);
-    case 2: return launch_batch<2>(c, n, ldc, m, l, ldl, q, k, acc, o, s);
-    case 4: return launch_batch<4>(c, n, ldc, m, l, ldl, q, k, acc, o, s);
-    case 8: return launch_batch<8>(c, n, ldc, m, l, ldl, q, k, acc, o, s);
+    case 1: return launch_batch_pre<1>(c, n, ldc, m, l, ldl, q, k, pre, acc, o, s);
+    case 2: return launch_batch_pre<2>(c, n, ldc, m, l, ldl, q, k, pre, acc, o, s);
+    case 4: return launch_batch_pre<4>(c, n, ldc, m, l, ldl, q, k, pre, acc, o, s);
+    case 8: return launch_batch_pre<8>(c, n, ldc, m, l, ldl, q, k, pre, acc, o, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// int32 codes: packs them (pack_u16_kernel) into `packed`, then scans the
+// packed rows; both on `stream`.
+cudaError_t launch_batch_i32(const int32_t* codes, int64_t n, int ldc, int m,
+                             const float* luts, int64_t ldl, int q, int k, int tq, int pre,
+                             bool acc, uint16_t* packed, float* out, cudaStream_t s) {
+  const int nv = (m + 7) / 8;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int64_t vectors = (n + kGroup - 1) / kGroup * kGroup * nv;
+  const int64_t need = (vectors + kPackThreads - 1) / kPackThreads;
+  const int64_t cap = static_cast<int64_t>(sms) * (2048 / kPackThreads);
+  pack_u16_kernel<<<static_cast<unsigned>(need < cap ? need : cap), kPackThreads, 0, s>>>(
+      codes, n, ldc, m, nv, reinterpret_cast<uint4*>(packed));
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return launch_batch_tq<uint16_t>(packed, n, 0, m, luts, ldl, q, k, tq, pre, acc, out, s);
 }
 
 // SMs x blocks of adc_scan_kernel<CodeT, kPre> (kScanThreads, smem bytes of
@@ -378,16 +497,31 @@ extern "C" {
 
 // codes: rows of ldc codes offset to subspace j0 (uint8 when code_bytes == 1,
 // int32 when 4), m = this chunk's subspaces; luts: offset to row j0 of
-// query 0's LUT, ldl floats apart.
+// query 0's LUT, ldl floats apart; tq: queries per tile; pre: 16-byte row
+// vectors a lane loads ahead (uint8: 1 for rows on 16 bytes with m % 16 ==
+// 0, else 0; int32: 1, 2 or 4 of the packed rows); packed: 16-byte aligned
+// scratch of ceil(n / 32) * 32 * ceil(m / 8) * 16 bytes for int32 codes
+// (adc_scan.py picks tq and pre and allocates packed).
 int adc_scan_batch_launch(const void* codes, int code_bytes, int64_t n, int ldc,
                           int m, const void* luts, int64_t ldl, int q, int k,
-                          int tq, int accumulate, void* out, void* stream) {
+                          int tq, int pre, int accumulate, void* packed, void* out,
+                          void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
+  const auto* l = static_cast<const float*>(luts);
+  auto* o = static_cast<float*>(out);
+  const bool acc = accumulate != 0;
   switch (code_bytes) {
-    case 1: return static_cast<int>(launch_batch_tq<uint8_t>(
-        codes, n, ldc, m, luts, ldl, q, k, tq, accumulate, out, s));
-    case 4: return static_cast<int>(launch_batch_tq<int32_t>(
-        codes, n, ldc, m, luts, ldl, q, k, tq, accumulate, out, s));
+    case 1:
+      if (pre && (reinterpret_cast<uintptr_t>(codes) % 16 || ldc % 16 || m % 16))
+        return static_cast<int>(cudaErrorMisalignedAddress);
+      return static_cast<int>(launch_batch_tq(static_cast<const uint8_t*>(codes), n, ldc, m,
+                                              l, ldl, q, k, tq, pre, acc, o, s));
+    case 4:
+      if (packed == nullptr || reinterpret_cast<uintptr_t>(packed) % 16)
+        return static_cast<int>(cudaErrorMisalignedAddress);
+      return static_cast<int>(launch_batch_i32(static_cast<const int32_t*>(codes), n, ldc,
+                                               m, l, ldl, q, k, tq, pre, acc,
+                                               static_cast<uint16_t*>(packed), o, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

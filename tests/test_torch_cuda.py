@@ -413,6 +413,47 @@ def test_int32_variants_match_plain(dev, n, m, k, q):
         assert counts[f"{name}_i32"] > 0 and counts[name] == 0, counts
 
 
+@pytest.mark.parametrize("n,q", [(200_003, 13), (4099, 37), (4097, 3), (5, 9), (33, 4),
+                                 (900_001, 5)])
+def test_adc_scan_batch_int32_ragged_exact(dev, n, q):
+    """int32 codes at K=512 (packed, then scanned), bit for bit: N off the
+    32-row pack group and off 4, Q off the 4-query tile and below it, a
+    group and a row past it, and a code table past the 50 MB L2 (900,001 x
+    16 x 4 bytes)."""
+    codes, luts = _wide_inputs(dev, n, 16, 512, q, seed=n + q)
+    torch.testing.assert_close(ops.adc_scan_batch(codes, luts),
+                               ref.adc_scan_batch_ref(codes, luts), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("m", [16, 12, 20, 6])
+def test_adc_scan_batch_int32_unaligned_rows(dev, m):
+    """int32 rows at K=512 on and off 16 bytes (a view one code into its
+    buffer; M=6 rows of 24 bytes), packed into rows of 2 or 3 vectors (M=20:
+    the third loaded during the sum, its last four codes padding); every
+    output bit for bit."""
+    codes, luts = _wide_inputs(dev, 2999, m, 512, 11, seed=m)
+    flat = torch.empty(codes.numel() + 1, dtype=torch.int32, device=dev)
+    flat[1:] = codes.reshape(-1)
+    view = flat[1:].view(codes.shape)
+    assert view.data_ptr() % 16 and view.is_contiguous()
+    for c in (codes, view):
+        torch.testing.assert_close(ops.adc_scan_batch(c, luts),
+                                   ref.adc_scan_batch_ref(c, luts), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("k", [1024, 1600])
+def test_adc_scan_batch_int32_subspace_chunks(dev, k):
+    """M=64 int32 codes whose LUT passes 200 KB: two launches, the second
+    starting from the first's sums (K=1024: chunks of 50 and 14 subspaces,
+    the second at an offset of 200 bytes; K=1600: two of 32), each packed
+    on its own, bit for bit at ragged N and Q."""
+    codes, luts = _wide_inputs(dev, 70_001, 64, k, 6, seed=k)
+    ops.reset_launch_counts()
+    torch.testing.assert_close(ops.adc_scan_batch(codes, luts),
+                               ref.adc_scan_batch_ref(codes, luts), rtol=0, atol=0)
+    assert ops.launch_counts()["adc_scan_batch_i32"] == 2
+
+
 @pytest.mark.parametrize("m,k", [(64, 1024), (208, 256)])
 def test_u8_chunked_kernels_match_plain(dev, m, k):
     """uint8 codes whose LUT passes 200 KB go in subspace chunks, each

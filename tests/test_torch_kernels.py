@@ -280,6 +280,81 @@ def test_adc_scan_batch_work_covers_each_output_once(n, q, tq, resident):
         assert (hits == 1).all()
 
 
+@pytest.mark.parametrize("n,q,k,resident", [
+    (1_000_000, 1000, 512, 132),   # the timed int32 shape
+    (50_000, 1000, 512, 132),      # the streaming round's delta arm
+    (200_003, 13, 512, 132),       # N off the pack group, Q off the tile
+    (4099, 37, 512, 132), (3, 2, 512, 132),   # Q below the tile
+    (10_007, 1, 1024, 528), (33, 1000, 512, 7)])
+def test_adc_scan_batch_int32_plan_covers_each_output_once(n, q, k, resident):
+    """The int32 plan at M=16: 4 queries a tile at K=512 (2 at K=1024), the
+    blocks' segments cover every (query tile, row) exactly once, counted
+    per tile as sorted row intervals (no dense (Q, N) array, so the 1000 x
+    1M plan is checked too), and each block stages each of its tiles once."""
+    tq = t_adc.query_tile(16, k)
+    assert tq == {512: 4, 1024: 2}[k]
+    blocks = t_adc.grid_blocks(n, q, tq, resident)
+    tiles = -(-q // tq)
+    assert 1 <= blocks <= resident
+    per_tile = [[] for _ in range(tiles)]
+    for b in range(blocks):
+        seen = []
+        for tile, r0, r1 in t_adc.block_work(n, q, tq, blocks, b):
+            assert 0 <= tile < tiles and 0 <= r0 < r1 <= n
+            assert not seen or tile == seen[-1] + 1
+            seen.append(tile)
+            per_tile[tile].append((r0, r1))
+    for spans in per_tile:
+        spans.sort()
+        assert spans[0][0] == 0 and spans[-1][1] == n
+        assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    stages = t_adc.lut_stages(n, q, tq, blocks)
+    assert tiles <= stages <= tiles + blocks - 1
+    if n == 1_000_000:
+        assert blocks == 132 and stages <= 250 + 131
+
+
+@pytest.mark.parametrize("n,m", [(1, 16), (31, 16), (32, 16), (33, 16), (100, 6),
+                                 (70, 50), (65, 14), (64, 8), (5, 20)])
+def test_adc_scan_batch_packed_layout(n, m):
+    """The int32 codes' packed layout: packed_index maps every (row, vector)
+    of whole groups of 32 rows onto the scratch's 16-byte vectors one to
+    one, and a vector of a group's 32 rows is one contiguous 512-byte run."""
+    nv = t_adc.packed_vectors(m)
+    assert (nv - 1) * 8 < m <= nv * 8
+    groups = -(-n // t_adc.PACK_GROUP)
+    assert t_adc.packed_bytes(n, m) == groups * t_adc.PACK_GROUP * nv * 16
+    idx = [[t_adc.packed_index(32 * g + i, v, nv) for i in range(32)]
+           for g in range(groups) for v in range(nv)]
+    assert sorted(x for run in idx for x in run) == list(range(groups * 32 * nv))
+    assert all(run == list(range(run[0], run[0] + 32)) for run in idx)
+
+
+def test_adc_scan_batch_prefetch_plan():
+    """uint8 rows read 16-byte vectors only on 16 bytes and whole vectors
+    (one vector ahead); packed int32 rows always do, with 1,
+    2 or 4 vectors ahead."""
+    for ptr, ldc, j0, mc, want in ((0, 16, 0, 16, 1), (1, 16, 0, 16, 0), (0, 8, 0, 8, 0),
+                                   (0, 32, 0, 32, 1), (0, 208, 192, 16, 1),
+                                   (0, 208, 200, 8, 0), (0, 7, 0, 7, 0)):
+        assert t_adc.batch_prefetch(ptr, ldc, j0, mc, 1) == want
+    for mc, want in ((16, 2), (8, 1), (4, 1), (20, 4), (24, 4), (32, 4), (64, 4), (50, 4)):
+        for ptr in (0, 4, 12):
+            assert t_adc.batch_prefetch(ptr, 64, 0, mc, 4) == want
+
+
+def test_adc_scan_batch_tiles_fit_up_to_k1024():
+    """Every per-launch (subspace chunk, K) the wrapper makes for K <= 1024,
+    int32 codes included, gets a query tile within the 227 KB a block may
+    take, and its packed uint16 codes hold every K it accepts."""
+    for k in range(1, 1025):
+        per = t_adc.MAX_LUT_BYTES // (4 * k)
+        for mc in range(1, per + 1):
+            tq = t_adc.query_tile(mc, k)
+            assert tq >= 1 and tq * mc * k * 4 <= 227 * 1024, (mc, k)
+    assert t_adc.MAX_LUT_BYTES // 4 < 2**16   # one subspace's K fits uint16
+
+
 @pytest.mark.parametrize("m,k,size", [(16, 256, 1), (16, 512, 4), (208, 256, 1),
                                       (64, 1024, 4), (7, 256, 1), (5, 512, 4),
                                       (32, 256, 1), (8, 512, 4)])
