@@ -78,7 +78,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    on rows gathered in PyTorch; ids, distances and counters must equal the
    ``hop_adc``-routed search;
 8. train: ``core.trainer.fit`` with the reference's ``TrainConfig``
-   defaults (1000 steps, batches of 512, a routing refresh every 100 steps)
+   defaults (batches of 512, a routing refresh every 100 steps) but 250
+   steps, not 1000 (``TRAIN_STEPS``)
    on phase 5's base and graph, from its PQ codebooks at R = I; step and
    refresh times, the busy share of 20 traced steps, peak memory, one step
    at the ``quant_train`` shape (8192 triplets, 4096 routing examples),
@@ -222,8 +223,29 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    ``pq_pairwise``, ``hop_adc`` and ``adc_scan_batch`` ran. No ordering
    between quantizers is gated: their ADC recall on this spec is about
    0.01.
+16. archs (run last, once the earlier phases' tensors are freed): the
+   model zoo. (a) every registry arch but ``rpq`` at its reduced config, one
+   set of params made on the CPU, its train step (+ prefill and decode for
+   the LMs) on the card and on the CPU: losses within 1e-5 relative,
+   logits within 1e-3, params after the step within 2·lr and 99% within
+   1e-4 relative (TF32 off); (b) granite-moe-1b-a400m at its published
+   config (bf16, 4 microbatches, remat) trains 3 steps on one ``lm_batch``
+   of 8 × 4096 (the loss is finite and falls; step ms, tokens/s, model-FLOPs
+   share of 989 TFLOP/s, peak GiB), then prefill 8 × 2048 and 8 decode
+   steps against forward's logits at the same positions (``ARCHS_DECODE_TOL``
+   on the capacity factor E/k, where no expert overflows and decode and
+   forward route alike; the published capacity's numbers are logged);
+   (c) granite-3-8b at its published config, 40 layers, prefill 8 × 2048
+   into a 32,768-slot cache and 16 decode steps beside their HBM bound
+   (weights + the whole cache once a step); (d) DeepFM, DIN, Bert4Rec and
+   DLRM (tables capped at 1M rows) at their widths, one train step each
+   at 65,536 rows (Bert4Rec's MLM at 4,096) and the forward's ms at 512;
+   GAT-cora 20 steps on a synthetic graph of Cora's shape (the loss
+   falls), a ``graph_pool_loss`` step at the molecule shape and
+   ``sample_block`` at minibatch_lg over a synthetic CSR of its 232,965
+   nodes and 114,615,892 edges. ``--archs`` runs this phase alone.
 
-Phases 5–15 each read every kernel's launch count around their own run.
+Phases 5–16 each read every kernel's launch count around their own run.
 The last three lines are the kernels JSON (each kernel's ``launches`` summed
 over those counted runs; the int32 variants are rows of their own), the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1758,7 +1780,10 @@ def gather_path(ds, graph, model, codes) -> dict:
 # phase 8: RPQ training at full width, then serving its codes
 # --------------------------------------------------------------------------
 
-TRACE_FROM_STEP = 301  # the 20 traced steps hold no routing refresh
+# fit's steps: the reference's TrainConfig default is 1000; cut to 250 when
+# phase 16 took the run past ~830 s on one H100 (ROADMAP's first named cut)
+TRAIN_STEPS = 250
+TRACE_FROM_STEP = 101  # the 20 traced steps hold no routing refresh
 TRACE_STEPS = 20
 
 
@@ -1784,7 +1809,7 @@ def train_path(ds, gt, graph, pq_model, pq_main: dict) -> tuple[dict, object, ob
 
     dev = ds.base.device
     cfg = Q.RPQConfig(dim=ds.base.shape[1], m=16, k=256)
-    tcfg = T.TrainConfig()
+    tcfg = T.TrainConfig(steps=TRAIN_STEPS)
     params0 = Q.init_params(cfg, pq_model.codebooks)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -1809,11 +1834,11 @@ def train_path(ds, gt, graph, pq_model, pq_main: dict) -> tuple[dict, object, ob
     traced = range(TRACE_FROM_STEP, TRACE_FROM_STEP + TRACE_STEPS)
     plain = [dt[s] for s in dt if s % tcfg.refresh_every and s not in traced]
     step_ms = statistics.median(plain)
-    refresh_ms = statistics.median(dt[s] - step_ms for s in dt
-                                   if s % tcfg.refresh_every == 0 and s > 0)
+    refreshes = [dt[s] - step_ms for s in dt if s % tcfg.refresh_every == 0 and s > 0]
+    refresh_ms = statistics.median(refreshes)
     log(f"[train] fit: {tcfg.steps} steps in {fit_s:.1f} s; median step {step_ms:.3f} ms "
         f"(first step {dt[0]:.1f} ms with the first refresh); routing refresh "
-        f"{refresh_ms:.1f} ms (median over {tcfg.steps // tcfg.refresh_every - 1})")
+        f"{refresh_ms:.1f} ms (median over {len(refreshes)})")
     trace = kernel_times(prof, "train", f"{TRACE_STEPS} traced steps (wall: {TRACE_STEPS} "
                          f"untraced median steps; traced {sum(dt[s] for s in traced):.1f} ms)",
                          TRACE_STEPS * step_ms)
@@ -3240,6 +3265,550 @@ def pgraphs_path(args, ds, gt, graph, pq_model, pq_codes, rpq_model, rpq_codes,
 
 
 # --------------------------------------------------------------------------
+# phase 16: the model zoo (dense and MoE LMs, GAT, recsys)
+# --------------------------------------------------------------------------
+
+# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet): the model-FLOPs
+# share of an LM train step is 6 · active params · tokens over it.
+BF16_FLOPS = 989e12
+# (b) granite-moe-1b-a400m trains at train_4k's sequence length on 8 rows
+# (train_4k's global batch of 256 cut to 8: one card), 3 steps of one batch;
+# then prefill 8 × 2048 and 8 decode steps against forward.
+ARCHS_TRAIN = ("granite-moe-1b-a400m", 8, 4096, 3)
+ARCHS_DECODE_CHECK = (8, 2048, 8)
+# (c) granite-3-8b serves decode_32k's cache length on 8 rows (its global
+# batch of 128 cut to 8): prefill 8 × 2048 into 32,768 slots, 16 decodes.
+ARCHS_SERVE = ("granite-3-8b", 8, 2048, 32768, 16)
+# (d) recsys at train_batch / serve_p99; Bert4Rec's MLM step at 4,096 rows
+# (its 20 scored positions' f32 logits over 26,880 items take 17.6 GB a
+# copy at 8,192, and the loss's backward holds four); DLRM's 26 tables
+# capped at 1,000,000 rows each (the MLPerf tables, ~188M rows, ~96 GB in
+# f32, do not fit one card).
+ARCHS_RECSYS = dict(train=65536, serve=512, bert4rec_train=4096, mlm_positions=20,
+                    dlrm_rows_cap=1_000_000)
+# Decode against forward: per-row relative L2 error of the logits, and the
+# share of rows whose top-1 token agrees. bf16 rounds at 2^-8 relative and
+# the two paths round differently (chunked attention vs the full score
+# matrix, other product shapes) through 24 residual layers.
+ARCHS_DECODE_TOL = dict(rel_l2=0.05, top1=0.95)
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _peak_gib(dev) -> float:
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else 0.0
+
+
+def _reset_peak(dev) -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _tree_to(tree, dev):
+    from repro_torch.common.treeutil import tree_map
+
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+def _adam_step(loss_fn, params, lr: float):
+    """One Adam step of ``loss_fn`` from fresh slots (the reference's
+    optimizer): (new params, loss)."""
+    from repro_torch.common import adam, constant_schedule
+    from repro_torch.models import layers as nn
+
+    opt = adam(constant_schedule(lr))
+    loss, g = nn.value_and_grad(loss_fn, params)
+    return opt.update(g, opt.init(params), params)[0], loss
+
+
+def _tree_gap(a, b) -> tuple[float, float]:
+    """(max |a − b|, share of entries within 1e-4 relative + 1e-6) over two
+    param trees, ``a`` on any device, ``b`` on the CPU."""
+    import torch
+
+    from repro_torch.common.treeutil import tree_leaves
+
+    gap, near, n = 0.0, 0, 0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        d = (x.detach().cpu().float() - y.float()).abs()
+        gap = max(gap, float(d.max()))
+        near += int((d <= 1e-4 * y.float().abs() + 1e-6).sum())
+        n += d.numel()
+    return gap, near / max(n, 1)
+
+
+def _recsys_batch(arch: str, cfg, b: int, rng, dev) -> dict:
+    """A synthetic batch of ``arch``'s inputs (numpy draws from ``rng``)."""
+    import numpy as np
+    import torch
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    label = t((rng.random(b) < 0.25).astype(np.float32))
+    if arch == "dlrm-mlperf":
+        rows = np.asarray(cfg.row_counts)
+        return {"dense": t(rng.standard_normal((b, cfg.n_dense), dtype=np.float32)),
+                "sparse": t((rng.random((b, len(rows))) * rows).astype(np.int32)),
+                "label": label}
+    if arch == "deepfm":
+        rows = np.asarray(cfg.row_counts)
+        return {"sparse": t((rng.random((b, len(rows))) * rows).astype(np.int32)),
+                "label": label}
+    if arch == "din":
+        n = rng.integers(1, cfg.seq_len + 1, (b, 1))
+        return {"hist": t(rng.integers(0, cfg.n_items, (b, cfg.seq_len)).astype(np.int32)),
+                "mask": t(np.arange(cfg.seq_len)[None, :] < n),
+                "target": t(rng.integers(0, cfg.n_items, b).astype(np.int32)),
+                "label": label}
+    p = ARCHS_RECSYS["mlm_positions"]
+    items = rng.integers(0, cfg.n_items, (b, cfg.seq_len)).astype(np.int32)
+    pos = np.stack([rng.permutation(cfg.seq_len)[:p] for _ in range(b)]).astype(np.int32)
+    labels = np.take_along_axis(items, pos, 1)
+    np.put_along_axis(items, pos, cfg.mask_token, 1)
+    return {"items": t(items), "pad": t(np.ones((b, cfg.seq_len), bool)),
+            "pos": t(pos), "labels": t(labels)}
+
+
+def _recsys_fns(arch: str, cfg):
+    """(init, forward(params, batch), loss(params, batch)) of ``arch``."""
+    from repro_torch.models import recsys as rs
+
+    if arch == "dlrm-mlperf":
+        fwd = lambda p, b: rs.dlrm_forward(cfg, p, b["dense"], b["sparse"])
+        init = rs.init_dlrm
+    elif arch == "deepfm":
+        fwd = lambda p, b: rs.deepfm_forward(cfg, p, b["sparse"])
+        init = rs.init_deepfm
+    elif arch == "din":
+        fwd = lambda p, b: rs.din_forward(cfg, p, b["hist"], b["mask"], b["target"])
+        init = rs.init_din
+    else:
+        fwd = lambda p, b: rs.bert4rec_encode(cfg, p, b["items"], b["pad"])
+        return rs.init_bert4rec, fwd, lambda p, b: rs.bert4rec_mlm_loss(
+            cfg, p, b["items"], b["pad"], b["pos"], b["labels"])
+    return init, fwd, lambda p, b: rs.bce_loss(fwd(p, b), b["label"])
+
+
+def _gat_graph(cfg, n: int, e: int, rng, dev):
+    """A synthetic graph of n nodes and e directed edges: features, src,
+    dst, labels and a label mask (numpy draws from ``rng``)."""
+    import numpy as np
+    import torch
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return (t((rng.random((n, cfg.d_in)) < 0.0127).astype(np.float32)),  # Cora: ~18 words
+            t(rng.integers(0, n, e).astype(np.int32)), t(rng.integers(0, n, e).astype(np.int32)),
+            t(rng.integers(0, cfg.n_classes, n).astype(np.int32)), t(rng.random(n) < 0.5))
+
+
+def archs_reduced(dev) -> dict:
+    """(a) Every registry arch but ``rpq`` at its reduced config, one set of
+    params made on the CPU: the train step (and prefill + decode for the
+    LMs) on ``dev`` and on the CPU. Losses within 1e-5 relative, logits
+    within 1e-3, params after the step within the step's size (2·lr:
+    Adam's first step turns on a gradient's last bits where |g| is near
+    1e-8) and 99% of them within 1e-4 relative."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch, list_archs
+    from repro_torch.data import lm_batch
+    from repro_torch.models import gnn
+    from repro_torch.models import transformer as tf
+
+    cpu = torch.device("cpu")
+    rows = {}
+    for arch in list_archs():
+        spec = get_arch(arch)
+        if spec.family == "rpq":
+            continue
+        cfg = spec.make_reduced()
+        gen = torch.Generator().manual_seed(16)
+        rng = np.random.default_rng(16)
+        out = {}
+        if spec.family == "lm":
+            lr = 1e-3
+            fns = tf.make_train_step(cfg, lr=lr)
+            params = fns.init(gen, device=cpu)
+            toks, labels = (torch.from_numpy(a) for a in lm_batch(16, 4, 16, cfg.vocab))
+            for where in (dev, cpu):
+                p = _tree_to(params, where)
+                p2, _, loss = fns.train_step(p, fns.opt_init(p), toks.to(where),
+                                             labels.to(where))
+                lg, cache = tf.prefill(cfg, p2, toks[:, :-1].to(where), max_len=20)
+                dec, cache = tf.decode_step(cfg, p2, cache, toks[:, -1].to(where))
+                out[where.type] = (p2, loss, torch.cat([lg, dec]).cpu())
+        elif spec.family == "gnn":
+            lr = 5e-3
+            init, step, opt_init = gnn.make_train_step(cfg)
+            params = init(gen, device=cpu)
+            graph = _gat_graph(cfg, 64, 256, rng, cpu)
+            for where in (dev, cpu):
+                p = _tree_to(params, where)
+                p2, _, loss = step(p, opt_init(p), *(a.to(where) for a in graph))
+                out[where.type] = (p2, loss, None)
+        else:
+            lr = 1e-3
+            init, _, loss_fn = _recsys_fns(arch, cfg)
+            params = init(gen, cfg, device=cpu)
+            batch = _recsys_batch(arch, cfg, 32, rng, cpu)
+            for where in (dev, cpu):
+                b = _tree_to(batch, where)
+                p2, loss = _adam_step(lambda p: loss_fn(p, b), _tree_to(params, where), lr)
+                out[where.type] = (p2, loss, None)
+        (gp, gl, glog), (cp, cl, clog) = out[dev.type], out["cpu"]
+        gap, near = _tree_gap(gp, cp)
+        row = dict(loss_dev=float(gl), loss_cpu=float(cl),
+                   loss_rel=abs(float(gl) - float(cl)) / max(abs(float(cl)), 1e-30),
+                   params_max_abs=gap, params_near=near,
+                   logits_max_abs=None if glog is None else float((glog - clog).abs().max()))
+        log(f"[archs] (a) {arch} reduced, {dev.type} vs cpu: loss {row['loss_dev']:.6f} vs "
+            f"{row['loss_cpu']:.6f} (rel {row['loss_rel']:.2e}, tol 1e-5); params after the "
+            f"step max|d| {gap:.2e} (tol {2 * lr:g}), {near:.4f} within 1e-4 rel (tol 0.99)"
+            + ("" if glog is None else
+               f"; prefill+decode logits max|d| {row['logits_max_abs']:.2e} (tol 1e-3)"))
+        check(math.isfinite(row["loss_dev"]) and row["loss_rel"] <= 1e-5,
+              f"(a) {arch}: the card's loss differs from the CPU's")
+        check(gap <= 2 * lr + 1e-5 and near >= 0.99,
+              f"(a) {arch}: the card's params after the step differ from the CPU's")
+        check(glog is None or row["logits_max_abs"] <= 1e-3,
+              f"(a) {arch}: the card's prefill/decode logits differ from the CPU's")
+        rows[arch] = row
+    return rows
+
+
+def _decode_vs_forward(cfg, params, b: int, s: int, n_dec: int, dev) -> dict:
+    """Prefill ``s`` tokens, decode ``n_dec`` more teacher-forced, and hold
+    the prefill's and each step's logits against forward's at the same
+    position, over a
+    forward of ``s`` plus a multiple of 128 tokens (so MoE groups of 1024
+    tile it)."""
+    import torch
+
+    from repro_torch.data import lm_batch
+    from repro_torch.models import transformer as tf
+
+    total = s + max(128, -(-n_dec // 128) * 128)
+    toks = torch.from_numpy(lm_batch(7, b, total, cfg.vocab)[0]).to(dev)
+    logits, cache = tf.prefill(cfg, params, toks[:, :s], max_len=s + n_dec)
+    got = [logits]
+    for i in range(n_dec):
+        logits, cache = tf.decode_step(cfg, params, cache, toks[:, s + i])
+        got.append(logits)
+    with torch.no_grad():
+        full = tf.forward(cfg, params, toks)[0][:, s - 1:s + n_dec]
+    got = torch.stack(got, dim=1)                                 # (B, n_dec, V)
+    v = cfg.vocab
+    got, full = got[..., :v], full[..., :v]
+    rel = ((got - full).norm(dim=-1) / full.norm(dim=-1)).flatten()
+    top1 = (got.argmax(-1) == full.argmax(-1)).float().mean()
+    return dict(rows=int(rel.numel()), rel_l2_max=float(rel.max()),
+                rel_l2_median=float(rel.median()), max_abs=float((got - full).abs().max()),
+                top1=float(top1), finite=bool(torch.isfinite(got).all()))
+
+
+def archs_train(dev, arch: str, b: int, s: int, steps: int) -> dict:
+    """(b) ``arch`` at its full published config: ``steps`` train steps on
+    one fixed ``lm_batch`` of b × s, then decode against forward."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import lm_batch
+    from repro_torch.models import transformer as tf
+
+    cfg = get_arch(arch).make_config()
+    _reset_peak(dev)
+    fns = tf.make_train_step(cfg, lr=3e-4)
+    params = fns.init(torch.Generator(dev).manual_seed(0), device=dev)
+    opt = fns.opt_init(params)
+    toks, labels = (torch.from_numpy(a).to(dev) for a in lm_batch(0, b, s, cfg.vocab))
+    losses, secs = [], []
+    for _ in range(steps):
+        _sync(dev)
+        t0 = time.perf_counter()
+        params, opt, loss = fns.train_step(params, opt, toks, labels)
+        losses.append(float(loss))
+        secs.append(time.perf_counter() - t0)
+    step_s = statistics.median(secs)
+    out = dict(config=dict(layers=cfg.n_layers, d_model=cfg.d_model, params=cfg.param_count,
+                           active=cfg.active_param_count, batch=b, seq=s,
+                           microbatches=cfg.microbatches, remat=cfg.remat),
+               losses=losses, step_s=secs, step_ms_median=step_s * 1e3,
+               tokens_per_s=b * s / step_s,
+               mfu=6 * cfg.active_param_count * b * s / (step_s * BF16_FLOPS),
+               peak_gib=_peak_gib(dev))
+    log(f"[archs] (b) {arch} full ({cfg.n_layers}L d={cfg.d_model}, {cfg.param_count / 1e9:.3f}B "
+        f"params, {cfg.active_param_count / 1e9:.3f}B active, bf16, microbatches "
+        f"{cfg.microbatches}, remat {cfg.remat}) train {b} x {s}: losses {losses}, step ms "
+        f"{[round(x * 1e3, 1) for x in secs]} (median {out['step_ms_median']:.1f}), "
+        f"{out['tokens_per_s']:.0f} tokens/s, model-FLOPs share {out['mfu']:.4f} of "
+        f"{BF16_FLOPS / 1e12:.0f} TFLOP/s bf16, peak {out['peak_gib']:.2f} GiB")
+    check(all(math.isfinite(x) for x in losses), f"(b) {arch}: a loss is not finite")
+    check(losses[-1] < losses[0], f"(b) {arch}: the loss did not fall on the repeated batch")
+    del opt
+    db, ds, dn = ARCHS_DECODE_CHECK
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    out["decode"] = _decode_vs_forward(cfg, params, db, ds, dn, dev)
+    # routing per token: with capacity factor E / k no expert can overflow,
+    # so forward's 1024-token groups and decode's 8 route alike
+    if cfg.moe:
+        wide = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+        out["decode_no_drop"] = _decode_vs_forward(wide, params, db, ds, dn, dev)
+    out["decode_s"] = time.perf_counter() - t0
+    out["decode_peak_gib"] = _peak_gib(dev)
+    for key in ("decode", "decode_no_drop"):
+        if key in out:
+            d = out[key]
+            log(f"[archs] (b) {arch} {key}: prefill {db} x {ds} + {dn} decode steps vs "
+                f"forward over {d['rows']} rows: rel L2 max {d['rel_l2_max']:.4f} median "
+                f"{d['rel_l2_median']:.4f} (tol {ARCHS_DECODE_TOL['rel_l2']}), max|d| "
+                f"{d['max_abs']:.4f}, top-1 equal {d['top1']:.4f} (tol "
+                f"{ARCHS_DECODE_TOL['top1']})")
+    gate = out["decode_no_drop" if cfg.moe else "decode"]
+    check(gate["finite"] and gate["rel_l2_max"] <= ARCHS_DECODE_TOL["rel_l2"]
+          and gate["top1"] >= ARCHS_DECODE_TOL["top1"],
+          f"(b) {arch}: decode disagrees with forward")
+    return out
+
+
+def archs_serve(dev, arch: str, b: int, s: int, max_len: int, n_dec: int) -> dict:
+    """(c) ``arch`` at its full published config, serving only: prefill
+    b × s into a ``max_len``-slot cache written in place, then ``n_dec``
+    decode steps, each beside its HBM bound (weights plus the whole cache
+    read once a step)."""
+    import torch
+
+    from repro_torch.common.treeutil import tree_leaves
+    from repro_torch.configs import get_arch
+    from repro_torch.data import lm_batch
+    from repro_torch.models import transformer as tf
+
+    cfg = get_arch(arch).make_config()
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    params = tf.init_lm(torch.Generator(dev).manual_seed(1), cfg, device=dev)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    toks = torch.from_numpy(lm_batch(8, b, s + n_dec, cfg.vocab)[0]).to(dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = tf.prefill(cfg, params, toks[:, :s], max_len=max_len)
+    _sync(dev)
+    prefill_s = time.perf_counter() - t0
+    ms = []
+    for i in range(n_dec):
+        t0 = time.perf_counter()
+        logits, cache = tf.decode_step(cfg, params, cache, toks[:, s + i])
+        _sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    if dev.type == "cuda":   # one more step, traced: where a decode step's time goes
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            logits, cache = tf.decode_step(cfg, params, cache, toks[:, s + n_dec - 1])
+            _sync(dev)
+        trace = kernel_times(prof, "archs", f"(c) {arch} one decode step",
+                             statistics.median(ms))
+        trace.pop("per_kernel", None)
+    else:
+        trace = None
+    w_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    c_bytes = 2 * cache.k.numel() * cache.k.element_size()
+    bound_ms = (w_bytes + c_bytes) / HBM_BYTES_S * 1e3
+    out = dict(config=dict(layers=cfg.n_layers, d_model=cfg.d_model, params=cfg.param_count,
+                           batch=b, prompt=s, cache_slots=max_len, decode_steps=n_dec),
+               init_s=init_s, prefill_s=prefill_s, decode_ms=ms,
+               decode_ms_median=statistics.median(ms), weight_bytes=w_bytes,
+               cache_bytes=c_bytes, decode_bound_ms=bound_ms, peak_gib=_peak_gib(dev),
+               length=int(cache.length), trace=trace)
+    log(f"[archs] (c) {arch} full ({cfg.n_layers}L, {cfg.param_count / 1e9:.3f}B params, "
+        f"{w_bytes / 1e9:.2f} GB bf16; cache {max_len} slots x {b} rows, {c_bytes / 1e9:.2f} "
+        f"GB): init {init_s:.2f} s, prefill {b} x {s} {prefill_s:.3f} s, decode ms "
+        f"{[round(x, 2) for x in ms]} (median {out['decode_ms_median']:.2f}, HBM bound "
+        f"{bound_ms:.2f}: weights + whole cache once a step), peak {out['peak_gib']:.2f} GiB")
+    check(bool(torch.isfinite(logits).all()), f"(c) {arch}: decode logits not finite")
+    check(out["length"] == s + n_dec + (trace is not None),
+          f"(c) {arch}: the cache length is {out['length']}")
+    return out
+
+
+def archs_recsys(dev, train_b: int, serve_b: int, b4r_b: int, rows_cap: int) -> dict:
+    """(d) DeepFM, DIN, Bert4Rec and DLRM (tables capped at ``rows_cap``
+    rows) at their published widths: one train step each (BCE; Bert4Rec's
+    MLM at ``b4r_b``), then the forward's device ms at ``serve_b``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.common.treeutil import tree_leaves
+    from repro_torch.configs import get_arch
+
+    out = {}
+    for seed, arch in enumerate(("deepfm", "din", "bert4rec", "dlrm-mlperf")):
+        cfg = get_arch(arch).make_config()
+        if arch == "dlrm-mlperf":
+            cfg = dataclasses.replace(cfg, row_counts=tuple(min(r, rows_cap)
+                                                            for r in cfg.row_counts))
+        _reset_peak(dev)
+        init, fwd, loss_fn = _recsys_fns(arch, cfg)
+        params = init(torch.Generator(dev).manual_seed(2), cfg, device=dev)
+        rng = np.random.default_rng(1600 + seed)
+        b = b4r_b if arch == "bert4rec" else train_b
+        batch = _recsys_batch(arch, cfg, b, rng, dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        params, loss = _adam_step(lambda p: loss_fn(p, batch), params, 1e-3)
+        loss = float(loss)
+        step_s = time.perf_counter() - t0
+        serve = _recsys_batch(arch, cfg, serve_b, rng, dev)
+        with torch.no_grad():
+            y = fwd(params, serve)
+            fwd_ms = cuda_ms(lambda: fwd(params, serve), iters=20) if dev.type == "cuda" else None
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        out[arch] = dict(train_batch=b, loss=loss, step_s=step_s, serve_batch=serve_b,
+                         forward_ms=fwd_ms, params=n_params, peak_gib=_peak_gib(dev))
+        log(f"[archs] (d) {arch} ({n_params / 1e6:.1f}M params): train step at {b} "
+            f"loss {loss:.4f} in {step_s:.3f} s; forward at {serve_b}: "
+            f"{'not measured' if fwd_ms is None else f'{fwd_ms:.3f} ms'}; peak "
+            f"{out[arch]['peak_gib']:.2f} GiB")
+        check(math.isfinite(loss) and bool(torch.isfinite(y).all()),
+              f"(d) {arch}: loss or forward not finite")
+        del params, batch, serve, y
+    return out
+
+
+def archs_gnn(dev, graph_nodes: int, graph_edges: int, steps: int, molecule: dict,
+              minibatch: dict) -> dict:
+    """(d) GAT-cora at its config on a synthetic graph of Cora's shape,
+    ``steps`` train steps (the loss falls); one ``graph_pool_loss`` step at
+    the molecule shape; one ``sample_block`` at minibatch_lg over a
+    synthetic CSR of that shape's node and edge counts, and a forward on
+    the block."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import gnn
+
+    cfg = get_arch("gat-cora").make_config()
+    _reset_peak(dev)
+    rng = np.random.default_rng(160)
+    init, step, opt_init = gnn.make_train_step(cfg)
+    params = init(torch.Generator(dev).manual_seed(3), device=dev)
+    opt = opt_init(params)
+    graph = _gat_graph(cfg, graph_nodes, graph_edges, rng, dev)
+    losses = []
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        params, opt, loss = step(params, opt, *graph)
+        losses.append(float(loss))
+    train_s = time.perf_counter() - t0
+    log(f"[archs] (d) gat-cora: {steps} train steps on {graph_nodes} nodes / {graph_edges} "
+        f"edges / {cfg.d_in} features in {train_s:.3f} s, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          "(d) gat-cora: the loss did not fall")
+    # molecule: batched small graphs, mean-pooled
+    nb, n_per, e_per = molecule["batch"], molecule["n_nodes"], molecule["n_edges"]
+    base = np.repeat(np.arange(nb) * n_per, e_per)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    mol = (t((rng.random((nb * n_per, cfg.d_in)) < 0.05).astype(np.float32)),
+           t((rng.integers(0, n_per, nb * e_per) + base).astype(np.int32)),
+           t((rng.integers(0, n_per, nb * e_per) + base).astype(np.int32)),
+           t(np.repeat(np.arange(nb), n_per).astype(np.int32)))
+    y = t(rng.integers(0, cfg.n_classes, nb).astype(np.int32))
+    _, mol_loss = _adam_step(lambda p: gnn.graph_pool_loss(cfg, p, *mol, nb, y), params, 5e-3)
+    mol_loss = float(mol_loss)
+    # minibatch_lg: a synthetic CSR of the shape's node and edge counts
+    n, e = minibatch["n_nodes"], minibatch["n_edges"]
+    t0 = time.perf_counter()
+    indptr = np.concatenate([[0], np.sort(rng.integers(0, e, n - 1)), [e]]).astype(np.int64)
+    indices = rng.integers(0, n, e)
+    feats = rng.random((n, cfg.d_in), dtype=np.float32)
+    labels = rng.integers(0, cfg.n_classes, n)
+    csr_s = time.perf_counter() - t0
+    seeds = rng.choice(n, minibatch["batch_nodes"], replace=False)
+    t0 = time.perf_counter()
+    blk = gnn.sample_block(rng, indptr, indices, feats, labels, seeds,
+                           tuple(minibatch["fanout"]), device=dev)
+    _sync(dev)
+    sample_s = time.perf_counter() - t0
+    with torch.no_grad():
+        h = gnn.forward(cfg, params, blk.feats, blk.src, blk.dst, edge_mask=blk.edge_mask)
+    check(math.isfinite(mol_loss) and bool(torch.isfinite(h).all()),
+          "(d) gat-cora: the molecule loss or the block forward is not finite")
+    out = dict(losses=losses, train_s=train_s, molecule_loss=mol_loss, csr_s=csr_s,
+               sample_s=sample_s, block_nodes=int(blk.feats.shape[0]),
+               block_edges=int(blk.src.shape[0]), block_live_edges=int(blk.edge_mask.sum()),
+               peak_gib=_peak_gib(dev))
+    log(f"[archs] (d) gat-cora molecule ({nb} graphs x {n_per} nodes / {e_per} edges): "
+        f"graph_pool_loss step loss {mol_loss:.4f}; sample_block over a {n}-node / {e}-edge "
+        f"CSR (built in {csr_s:.2f} s): {minibatch['batch_nodes']} seeds, fanout "
+        f"{tuple(minibatch['fanout'])} -> {out['block_nodes']} node slots, "
+        f"{out['block_live_edges']}/{out['block_edges']} edges in {sample_s:.3f} s; forward "
+        f"on the block finite; peak {out['peak_gib']:.2f} GiB")
+    del indices, feats
+    return out
+
+
+def archs_path(dev) -> dict:
+    """Phase 16: (a) every reduced arch on ``dev`` against the CPU, (b) the
+    MoE LM training at full width, (c) the dense LM decoding against a 32k
+    cache at full width, (d) the recsys models and GAT at their widths."""
+    from repro_torch.configs import base
+    from repro_torch.device import full_f32_matmul
+    from repro_torch.kernels import ops
+
+    full_f32_matmul()
+    ops.reset_launch_counts()
+    times, out = {}, {}
+    t0 = time.perf_counter()
+    out["reduced"] = archs_reduced(dev)
+    times["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    arch, b, s, steps = ARCHS_TRAIN
+    out["train"] = archs_train(dev, arch, b, s, steps)
+    times["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    arch, b, s, max_len, n_dec = ARCHS_SERVE
+    out["serve"] = archs_serve(dev, arch, b, s, max_len, n_dec)
+    times["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shapes = {sp.name: sp.dims for sp in base.GNN_SHAPES}
+    out["recsys"] = archs_recsys(dev, ARCHS_RECSYS["train"], ARCHS_RECSYS["serve"],
+                                 ARCHS_RECSYS["bert4rec_train"],
+                                 ARCHS_RECSYS["dlrm_rows_cap"])
+    g = shapes["full_graph_sm"]
+    out["gnn"] = archs_gnn(dev, g["n_nodes"], g["n_edges"], 20, shapes["molecule"],
+                           shapes["minibatch_lg"])
+    times["d"] = time.perf_counter() - t0
+    _reset_peak(dev)
+    out["times"] = times
+    out["launches"] = ops.launch_counts()
+    log(f"[archs] parts (a)-(d) in s: { {k: round(v, 2) for k, v in times.items()} }; kernel "
+        f"launches { {k: v for k, v in out['launches'].items() if v} } (the zoo runs none)")
+    return out
+
+
+# --------------------------------------------------------------------------
 # phase 11: the train -> checkpoint -> serve command lines
 # --------------------------------------------------------------------------
 
@@ -3445,6 +4014,18 @@ def parse_serve(out: str, scenario: str) -> dict:
     return row
 
 
+def run_archs() -> dict:
+    """Phase 16 on the card, after the earlier phases' tensors are freed."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[archs] resident before the phase: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return archs_path(torch.device("cuda"))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=float, default=10.0,
@@ -3459,6 +4040,8 @@ def main() -> int:
     ap.add_argument("--adc-batch", action="store_true",
                     help="only time adc_scan_batch's diagnostic rows (adc_batch_rows), "
                          "with the repro_torch of --src, and print them as JSON")
+    ap.add_argument("--archs", action="store_true",
+                    help="only run phase 16 (the model zoo) and print its results as JSON")
     ap.add_argument("--src", default=SRC,
                     help="the src directory --retrieval-us and --adc-batch import "
                          "repro_torch from (default: this checkout's)")
@@ -3492,6 +4075,10 @@ def main() -> int:
             if "Used" in line or "spill" in line or "properties for" in line:
                 log(f"[build] adc_scan: {line.strip()}")
         print(json.dumps({"src": src, "device": smi, "rows": adc_batch_rows()}))
+        return 0
+
+    if args.archs:
+        print(json.dumps({"device": smi, "archs": run_archs()}))
         return 0
 
     t0 = time.perf_counter()
@@ -3567,6 +4154,9 @@ def main() -> int:
         {"pq": result["times"]["train_pq"], "rpq": phases["train"]["fit_s"]})
     log(f"[pgraphs] done in {time.perf_counter() - t0:.1f} s")
     del ds, gt, graph, pq_codes, params, rpq_codes
+    t0 = time.perf_counter()
+    phases["archs"] = run_archs()
+    log(f"[archs] done in {time.perf_counter() - t0:.1f} s")
     for name, row in kernels.items():
         row["launches"] = sum(p["launches"][name] for p in phases.values())
     log(f"[total] {time.perf_counter() - t_start:.1f} s")

@@ -1,6 +1,5 @@
-"""Shared substrate of the port: the optimizer, its schedules and the
-helpers over parameter tuples. Port of ``repro/common`` (``sgd``,
-``cosine_schedule`` and ``warmup_cosine`` wait for the model zoo)."""
+"""Shared substrate of the port: the optimizers, their schedules and the
+helpers over parameter trees. Port of ``repro/common``."""
 
 from repro_torch.common.optim import (  # noqa: F401
     OptState,
@@ -8,6 +7,9 @@ from repro_torch.common.optim import (  # noqa: F401
     adam,
     clip_by_global_norm,
     constant_schedule,
+    cosine_schedule,
     one_cycle,
+    sgd,
+    warmup_cosine,
 )
 from repro_torch.common.treeutil import global_norm  # noqa: F401

@@ -1,5 +1,7 @@
-"""Helpers over parameter trees: a tensor, or a (named) tuple or list of
-trees. Port of the parts of ``repro/common/treeutil.py`` the trainer uses."""
+"""Helpers over parameter trees: a tensor, or a (named) tuple, list or dict
+of trees. Port of the parts of ``repro/common/treeutil.py`` the trainers
+use. A dict's leaves come in sorted key order, as ``jax.tree.leaves``
+gives them."""
 
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ def _is_namedtuple(tree) -> bool:
 
 def tree_leaves(tree) -> list:
     """The tensors of ``tree`` in order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
     if isinstance(tree, (tuple, list)):
         return [leaf for sub in tree for leaf in tree_leaves(sub)]
     return [tree]
@@ -22,6 +26,8 @@ def tree_leaves(tree) -> list:
 def tree_map(fn: Callable, tree, *rest):
     """``fn`` over the leaves of ``tree`` and of the trees of the same
     structure in ``rest``; keeps named tuples' types."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
     if isinstance(tree, (tuple, list)):
         parts = [tree_map(fn, *subs) for subs in zip(tree, *rest)]
         if _is_namedtuple(tree):

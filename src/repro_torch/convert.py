@@ -2,7 +2,11 @@
 
 The functions take the JAX objects' arrays as numpy (the caller does the
 ``np.asarray``) and return the port's objects on ``device``; nothing here
-imports JAX.
+imports JAX. The model zoo's converters take a whole param tree (nested
+dicts and lists of numpy arrays, as ``jax.tree.map(np.asarray, params)``
+gives it) and check it against the port's own init for the config, path
+by path, in shape and dtype. A bf16 leaf (``ml_dtypes.bfloat16`` in numpy)
+is carried by its raw bits, never through f32.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from repro_torch.core.quantizer import RPQParams
 from repro_torch.device import resolve_device
 from repro_torch.graphs.adjacency import Graph
 from repro_torch.graphs.hnsw import HNSW
+from repro_torch.models import gnn, recsys, transformer
 from repro_torch.pq.base import QuantizerModel
 from repro_torch.pq.catalyst import CatalystModel, CatalystParams
 from repro_torch.pq.pack import QuantizedLUT
@@ -99,3 +104,64 @@ def catalyst_from_numpy(w1, b1, w2, b2, r, codebooks, *,
                          b2=as_f32(b2))
     return CatalystModel(net=net, pq=quantizer_from_numpy(r, codebooks,
                                                           device=dev))
+
+
+def _leaf_from_numpy(a, dev) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def _tree_from_numpy(like, tree, dev, path: str = ""):
+    """``tree`` as tensors on ``dev``, refusing any path, shape or dtype
+    that differs from ``like`` (the port's init on the meta device)."""
+    if isinstance(like, dict):
+        if not isinstance(tree, dict) or sorted(tree) != sorted(like):
+            raise ValueError(f"param tree at {path or '/'}: keys "
+                             f"{sorted(tree) if isinstance(tree, dict) else type(tree)} "
+                             f"!= {sorted(like)}")
+        return {k: _tree_from_numpy(like[k], tree[k], dev, f"{path}/{k}") for k in like}
+    if isinstance(like, list):
+        if not isinstance(tree, (list, tuple)) or len(tree) != len(like):
+            raise ValueError(f"param tree at {path}: expected a list of {len(like)}")
+        return [_tree_from_numpy(a, b, dev, f"{path}/{i}")
+                for i, (a, b) in enumerate(zip(like, tree))]
+    t = _leaf_from_numpy(tree, dev)
+    if tuple(t.shape) != tuple(like.shape) or t.dtype != like.dtype:
+        raise ValueError(f"param {path}: {tuple(t.shape)} {t.dtype}, the config "
+                         f"wants {tuple(like.shape)} {like.dtype}")
+    return t
+
+
+def _convert(init, cfg, tree, device):
+    shapes = init(torch.Generator(), cfg, device="meta")
+    return _tree_from_numpy(shapes, tree, resolve_device(device))
+
+
+def lm_from_numpy(cfg: transformer.LMConfig, tree, *, device=None) -> dict:
+    """A ``repro.models.transformer.init_lm`` tree (dense or MoE) → the
+    port's."""
+    return _convert(transformer.init_lm, cfg, tree, device)
+
+
+def gat_from_numpy(cfg: gnn.GATConfig, tree, *, device=None) -> dict:
+    """A ``repro.models.gnn.init_gat`` tree → the port's."""
+    return _convert(gnn.init_gat, cfg, tree, device)
+
+
+def dlrm_from_numpy(cfg: recsys.DLRMConfig, tree, *, device=None) -> dict:
+    return _convert(recsys.init_dlrm, cfg, tree, device)
+
+
+def deepfm_from_numpy(cfg: recsys.DeepFMConfig, tree, *, device=None) -> dict:
+    return _convert(recsys.init_deepfm, cfg, tree, device)
+
+
+def din_from_numpy(cfg: recsys.DINConfig, tree, *, device=None) -> dict:
+    return _convert(recsys.init_din, cfg, tree, device)
+
+
+def bert4rec_from_numpy(cfg: recsys.Bert4RecConfig, tree, *, device=None) -> dict:
+    return _convert(recsys.init_bert4rec, cfg, tree, device)
+

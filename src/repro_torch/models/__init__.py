@@ -1,3 +1,4 @@
-"""Model-side users of the port's kernels. Port of ``repro/models``: so far
-only the retrieval scorers of ``recsys.py`` (the recsys models themselves
-wait for the model zoo)."""
+"""The architecture zoo. Port of ``repro/models``: the shared layers, the
+dense and MoE decoder LMs with training, prefill and KV-cache decode
+(``transformer``, ``moe``), GAT with its neighbour sampler (``gnn``), and
+DLRM, DeepFM, DIN and Bert4Rec with the retrieval scorers (``recsys``)."""

@@ -605,3 +605,100 @@ def test_hnsw_descent_and_catalyst_serving_on_the_card(dev):
                                ref.adc_scan_batch_ref(c_card, lut_card), rtol=0, atol=0)
     counts = ops.launch_counts()
     assert counts["pq_pairwise"] > 0 and counts["adc_scan_batch"] > 0
+
+
+# --------------------------------------------------------------------------
+# the model zoo: reduced configs on the card against the CPU route
+# --------------------------------------------------------------------------
+
+def _to(tree, where):
+    from repro_torch.common.treeutil import tree_map
+
+    return tree_map(lambda t: t.to(where), tree)
+
+
+def _step_close(a, b, lr):
+    """Params after one Adam step: every entry within the step's size
+    (lr·g/(|g| + 1e-8) turns on a gradient's last bits where |g| is near
+    1e-8), and 99% of them within 1e-4 relative."""
+    from repro_torch.common.treeutil import tree_leaves
+
+    near = []
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        d = (x.cpu().float() - y.float()).abs()
+        assert float(d.max()) <= 2 * lr + 1e-5
+        near.append((d <= 1e-4 * y.float().abs() + 1e-6).float().mean())
+    assert float(torch.stack(near).min()) >= 0.99
+
+
+@pytest.mark.parametrize("arch", ["granite-3-8b", "granite-moe-1b-a400m", "llama3-405b"])
+def test_reduced_lm_on_the_card_equals_the_cpu_route(dev, arch):
+    from repro_torch.configs import get_arch
+    from repro_torch.device import full_f32_matmul
+    from repro_torch.models import transformer as tf
+
+    full_f32_matmul()
+    cfg = get_arch(arch).make_reduced()
+    fns = tf.make_train_step(cfg, lr=1e-3)
+    params = fns.init(torch.Generator().manual_seed(0), device="cpu")
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (4, 16), generator=g)
+    labels = torch.randint(0, cfg.vocab, (4, 16), generator=g)
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        p = _to(params, where)
+        p2, _, loss = fns.train_step(p, fns.opt_init(p), toks.to(where), labels.to(where))
+        logits, cache = tf.prefill(cfg, p2, toks[:, :-1].to(where), max_len=20)
+        dec, cache = tf.decode_step(cfg, p2, cache, toks[:, -1].to(where))
+        out[where.type] = (p2, loss, logits, dec)
+    gp, gl, glog, gdec = out["cuda"]
+    cp, cl, clog, cdec = out["cpu"]
+    torch.testing.assert_close(gl.cpu(), cl, rtol=1e-5, atol=1e-5)
+    _step_close(gp, cp, 1e-3)
+    torch.testing.assert_close(glog.cpu(), clog, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(gdec.cpu(), cdec, rtol=1e-3, atol=1e-3)
+
+
+def test_reduced_gat_and_recsys_on_the_card_equal_the_cpu_route(dev):
+    """GAT's segment sums run through ``index_add`` (atomic order on the
+    card), so its loss is held to 1e-5 relative, not bit for bit."""
+    from repro_torch.configs import get_arch
+    from repro_torch.device import full_f32_matmul
+    from repro_torch.models import gnn, recsys
+
+    full_f32_matmul()
+    rng = np.random.default_rng(3)
+    gcfg = get_arch("gat-cora").make_reduced()
+    n, e = 64, 256
+    gin = [torch.from_numpy(a) for a in (
+        rng.normal(size=(n, gcfg.d_in)).astype(np.float32),
+        rng.integers(0, n, e).astype(np.int32), rng.integers(0, n, e).astype(np.int32),
+        rng.integers(0, gcfg.n_classes, n).astype(np.int32), rng.random(n) < 0.7)]
+    _, gstep, ginit = gnn.make_train_step(gcfg)
+    gparams = gnn.init_gat(torch.Generator().manual_seed(0), gcfg, device="cpu")
+    dcfg = get_arch("dlrm-mlperf").make_reduced()
+    dparams = recsys.init_dlrm(torch.Generator().manual_seed(1), dcfg, device="cpu")
+    batch = {"dense": torch.from_numpy(rng.normal(size=(32, 13)).astype(np.float32)),
+             "sparse": torch.from_numpy(rng.integers(0, 100, (32, 6)).astype(np.int32)),
+             "label": torch.from_numpy((rng.random(32) < 0.3).astype(np.float32))}
+    fwd = lambda p, b: recsys.dlrm_forward(dcfg, p, b["dense"], b["sparse"])
+    _, dstep, dinit = recsys.make_bce_train_step(fwd, None)
+    bcfg = get_arch("bert4rec").make_reduced()
+    bparams = recsys.init_bert4rec(torch.Generator().manual_seed(2), bcfg, device="cpu")
+    items = torch.from_numpy(rng.integers(0, bcfg.n_items, (8, bcfg.seq_len)).astype(np.int32))
+    pad = torch.ones_like(items, dtype=torch.bool)
+    pos = torch.from_numpy(rng.integers(0, bcfg.seq_len, (8, 4)).astype(np.int32))
+    lab = torch.from_numpy(rng.integers(-1, bcfg.n_items, (8, 4)).astype(np.int32))
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        p = _to(gparams, where)
+        gp, _, gl = gstep(p, ginit(p), *(t.to(where) for t in gin))
+        p = _to(dparams, where)
+        dp, _, dl = dstep(p, dinit(p), _to(batch, where))
+        bl = recsys.bert4rec_mlm_loss(bcfg, _to(bparams, where), items.to(where),
+                                      pad.to(where), pos.to(where), lab.to(where))
+        out[where.type] = (gp, gl, dp, dl, bl)
+    for i in (1, 3, 4):
+        torch.testing.assert_close(out["cuda"][i].cpu(), out["cpu"][i], rtol=1e-5, atol=1e-5)
+    _step_close(out["cuda"][0], out["cpu"][0], 5e-3)
+    _step_close(out["cuda"][2], out["cpu"][2], 1e-3)

@@ -311,7 +311,8 @@ def test_port_trains_and_serves_end_to_end_on_cpu():
 
 
 _SRC_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
+    ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
+    ROOT / "examples" / "disk_serving_torch.py", ROOT / "examples" / "arch_zoo_torch.py"]
 
 
 @pytest.mark.parametrize("path", _SRC_FILES, ids=lambda p: p.name)
@@ -340,7 +341,11 @@ def test_import_repro_torch_loads_no_jax():
             "repro_torch.models.recsys, repro_torch.kernels.hop_gather, "
             "repro_torch.dist.checkpoint, repro_torch.dist.retry, "
             "repro_torch.search.seed, repro_torch.search.degrade, "
-            "repro_torch.launch.train, repro_torch.launch.serve, repro_torch.pq.opq; "
+            "repro_torch.launch.train, repro_torch.launch.serve, repro_torch.pq.opq, "
+            "repro_torch.configs, repro_torch.models.layers, repro_torch.models.moe, "
+            "repro_torch.models.transformer, repro_torch.models.gnn, "
+            "repro_torch.data.tokens, repro_torch.data.pipeline; "
+            "repro_torch.configs.list_archs(); "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
