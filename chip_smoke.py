@@ -196,10 +196,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    error-feedback residual within one quantization step.
 
 15. pgraphs (run after phase 14, in the main process): on phase 5's 1M
-   base, queries and ground truth, ``build_hnsw(m=12)`` and
-   ``build_nsg(r=24, k=32, search_l=32)`` (the parameters of
+   base, queries and ground truth, one exact k=48 kNN of the base, then
+   ``build_hnsw(m=12)`` (its layer 0 from that kNN) and ``build_nsg(r=24,
+   k=32, search_l=32)`` (from its first 32 columns; the parameters of
    ``benchmarks/paper_tables.py:85-86``; NSG at phase 5's Vamana batch),
-   their seconds and the exact kNN's share, degree stats and NSG's nodes
+   their seconds, degree stats and NSG's nodes
    unreachable before each repair pass; ``train_opq(outer_iters=4,
    kmeans_iters=8)`` and ``train_catalyst(M=16, K=256, d_out=48,
    steps=1000)`` on ``ds.train`` (d_out=48: the multiple of 16 nearest the
@@ -244,8 +245,17 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    falls), a ``graph_pool_loss`` step at the molecule shape and
    ``sample_block`` at minibatch_lg over a synthetic CSR of its 232,965
    nodes and 114,615,892 edges. ``--archs`` runs this phase alone.
+17. launch (last, in the main process): ``repro_torch.launch.dryrun``'s
+   meta check of the reference's dry-run test cells and the seven rpq cells
+   on the 16×16 and 2×16×16 meshes (per-device argument bytes, matmul
+   FLOPs), the seven rpq cells run for real at full width on the host mesh
+   (``dryrun.card_record``: step ms, peak GiB, the kernels each launched,
+   outputs finite and of the meta run's shapes), then the four example
+   twins (``examples/{adaptive_routing,serve_ann,streaming}_torch.py
+   --dry-run`` and ``train_rpq_e2e_torch`` at ``E2E_ARGS``, with one
+   injected restart). ``--launch`` runs this phase alone.
 
-Phases 5–16 each read every kernel's launch count around their own run.
+Phases 5–17 each read every kernel's launch count around their own run.
 The last three lines are the kernels JSON (each kernel's ``launches`` summed
 over those counted runs; the int32 variants are rows of their own), the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -3106,6 +3116,7 @@ def pgraphs_path(args, ds, gt, graph, pq_model, pq_codes, rpq_model, rpq_codes,
     import torch
 
     from repro_torch.graphs import build_hnsw, build_nsg, descend, degree_stats
+    from repro_torch.graphs.knn import knn_ids
     from repro_torch.graphs import hnsw as hnsw_mod
     from repro_torch.graphs import nsg as nsg_mod
     from repro_torch.kernels import ops, ref
@@ -3122,19 +3133,28 @@ def pgraphs_path(args, ds, gt, graph, pq_model, pq_codes, rpq_model, rpq_codes,
     ops.reset_launch_counts()
     checks, build = {}, {}
 
+    # one exact kNN of the base serves HNSW's layer 0 (k = 4m = 48) and NSG
+    # (its first NSG_K columns; bit for bit the k=32 kNN, a CPU test holds it)
+    knn = timed_("shared_knn", lambda: knn_ids(ds.base, ds.base, 4 * HNSW_M,
+                                               exclude_self=True)[0])
+    log(f"[pgraphs] shared exact kNN (k={4 * HNSW_M}) of the base in "
+        f"{times['shared_knn']:.2f} s")
     with knn_seconds(hnsw_mod, []) as spent:
-        h = timed_("build_hnsw", lambda: build_hnsw(ds.base, generator=gen(2), m=HNSW_M))
+        h = timed_("build_hnsw", lambda: build_hnsw(ds.base, generator=gen(2), m=HNSW_M,
+                                                    knn0=knn))
     build["hnsw"] = {"s": times["build_hnsw"], "knn_s": sum(spent),
                      "layers": [int(g.n) for g in h.layers],
                      "degree": [degree_stats(g) for g in (h.base, *h.layers)]}
     repair: dict = {}
     with knn_seconds(nsg_mod, []) as spent, nsg_repair_log(nsg_mod, repair):
         g_nsg = timed_("build_nsg", lambda: build_nsg(
-            ds.base, r=NSG_R, k=NSG_K, search_l=NSG_L, batch=args.vamana_batch))
+            ds.base, r=NSG_R, k=NSG_K, search_l=NSG_L, batch=args.vamana_batch, knn=knn))
+    del knn
     build["nsg"] = {"s": times["build_nsg"], "knn_s": sum(spent), **repair,
                     "degree": degree_stats(g_nsg)}
     for name, b in build.items():
-        log(f"[pgraphs] {name}: built in {b['s']:.2f} s, of it exact kNN {b['knn_s']:.2f} s "
+        log(f"[pgraphs] {name}: built in {b['s']:.2f} s from the shared kNN, of it exact "
+            f"kNN inside the build {b['knn_s']:.2f} s "
             f"({b['knn_s'] / b['s']:.3f}); degree {b['degree']}"
             + (f"; upper layers {b['layers']}" if name == "hnsw" else
                f"; unreachable from the medoid before each adoption pass "
@@ -3809,6 +3829,141 @@ def archs_path(dev) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 17: the launch harness (dry-run cells), the rpq cells on the card,
+# and the four example twins
+# --------------------------------------------------------------------------
+
+# the reference's dry-run test cells (tests/test_dryrun_cells.py) and the
+# seven rpq cells, checked on meta on both production meshes
+LAUNCH_META_CELLS = (("gat-cora", "molecule"), ("deepfm", "serve_p99"),
+                     ("granite-moe-1b-a400m", "long_500k"), ("rpq", "quant_train"),
+                     ("rpq", "serve_1m"), ("rpq", "encode_bulk"), ("rpq", "adc_bulk"),
+                     ("rpq", "sharded_graph"), ("rpq", "sharded_graph_fs4"),
+                     ("rpq", "sharded_graph_wide"))
+# the card kernel each rpq cell's step must launch
+LAUNCH_CARD_KERNELS = {"quant_train": "pq_pairwise", "serve_1m": "adc_scan_batch",
+                       "encode_bulk": "pq_pairwise", "adc_bulk": "adc_scan_batch",
+                       "sharded_graph": "hop_adc", "sharded_graph_fs4": "hop_adc_fs",
+                       "sharded_graph_wide": "hop_adc"}
+# examples/train_rpq_e2e_torch.py's Args, lowered (a cut): 60 steps on
+# sift-small with the crash at step 35, in a temporary ckpt_dir
+E2E_ARGS = dict(steps=60, fail_at_step=35, checkpoint_every=10, refresh_every=20,
+                log_every=20)
+
+
+def launch_twins(dev, work_dir: str) -> dict:
+    """The four example twins at ``--dry-run`` on ``dev``, in this process
+    (train_rpq_e2e_torch at :data:`E2E_ARGS`)."""
+    import contextlib as _ctx
+    import importlib
+    import io
+
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    out, times = {}, {}
+    for name in ("adaptive_routing_torch", "serve_ann_torch", "streaming_torch",
+                 "train_rpq_e2e_torch"):
+        mod = importlib.import_module(name)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with _ctx.redirect_stdout(buf):
+            if name == "train_rpq_e2e_torch":
+                args = mod.Args()
+                for k, v in E2E_ARGS.items():
+                    setattr(args, k, v)
+                args.ckpt_dir = os.path.join(work_dir, "e2e")
+                args.device = dev.type
+                res = mod.main(args)
+            else:
+                res = mod.main(["--dry-run", "--device", dev.type])
+        times[name] = time.perf_counter() - t0
+        text = buf.getvalue()
+        for line in text.splitlines():
+            if line.strip() and not line.startswith("[rpq] step"):
+                log(f"[launch] {name}: {line}")
+        out[name] = {"s": times[name], "lines": len(text.splitlines())}
+        if name == "adaptive_routing_torch":
+            out[name]["recall"] = [r["recall"] for r in res["rows"]]
+            check(len(res["rows"]) == 5 and all(0 <= r <= 1 for r in out[name]["recall"]),
+                  "[launch] adaptive_routing_torch: not five rows of recall")
+        elif name == "serve_ann_torch":
+            out[name]["recall"] = [r["recall"] for r in res["rows"]]
+            check(len(res["rows"]) == 4 and all(r["qps"] > 0 for r in res["rows"]),
+                  "[launch] serve_ann_torch: not four rows with QPS")
+        elif name == "streaming_torch":
+            out[name]["recall"] = res["recalls"]
+            check("self-contained restore" in text, "[launch] streaming_torch did not finish")
+        else:
+            out[name]["recall"] = res["recall"]
+            check(res["restarts"] == 1 and "[train] resumed from step 30" in text,
+                  "[launch] train_rpq_e2e_torch: no restart from step 30")
+    log(f"[launch] twins in s: { {k: round(v, 2) for k, v in times.items()} }")
+    return out
+
+
+def launch_path(dev) -> dict:
+    """Phase 17: the dry-run check of :data:`LAUNCH_META_CELLS` on both
+    production meshes (meta device), the seven rpq cells run for real at
+    full width on the host mesh (step ms, peak GiB, the kernels each
+    launched), then the four example twins."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import (PRODUCTION_MESHES, hbm_capacity_bytes,
+                                         make_production_mesh)
+
+    _reset_peak(dev)
+    times, out = {}, {"meta": [], "card": []}
+    t0 = time.perf_counter()
+    hbm = hbm_capacity_bytes(dev)
+    for mesh_name, multi in PRODUCTION_MESHES.items():
+        mesh = make_production_mesh(multi_pod=multi)
+        for arch, shape in LAUNCH_META_CELLS:
+            rec = dryrun.run_cell(arch, shape, mesh, mesh_name, hbm)
+            log(f"[launch] meta {dryrun._line(rec)}")
+            check(rec["ok"], f"[launch] meta check of {arch} {shape} on {mesh_name} failed: "
+                  f"{rec.get('error')}")
+            out["meta"].append({k: rec[k] for k in ("arch", "shape", "mesh", "memory", "cost",
+                                                    "fits", "check_s")})
+    times["meta"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches = {name: 0 for name in ops.launch_counts()}
+    for shape, kernel in LAUNCH_CARD_KERNELS.items():
+        rec = dryrun.card_record(shape, dev)
+        check(rec["ok"], f"[launch] card run of rpq {shape} failed: {rec.get('error')}")
+        run = rec["run"]
+        log(f"[launch] card rpq {shape:18s} on {rec['mesh']}: step {run['step_ms']:.3f} ms "
+            f"(median of {len(run['step_ms_all'])}), peak {run['peak_bytes'] / 2**30:.2f} GiB, "
+            f"kernels {run['launches']}")
+        check(run["launches"].get(kernel, 0) > 0,
+              f"[launch] rpq {shape} did not launch {kernel}")
+        for name, n in run["launches"].items():
+            launches[name] += n
+        out["card"].append({"shape": shape, "mesh": rec["mesh"], "memory": rec["memory"],
+                            "cost": rec["cost"], **run})
+        torch.cuda.empty_cache()
+    times["card"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="rpq_launch_") as d:
+        out["twins"] = launch_twins(dev, d)
+    for name, n in ops.launch_counts().items():
+        launches[name] += n
+    times["twins"] = time.perf_counter() - t0
+    out["times"], out["launches"] = times, launches
+    log(f"[launch] parts in s: { {k: round(v, 2) for k, v in times.items()} }; kernel "
+        f"launches { {k: v for k, v in launches.items() if v} }")
+    return out
+
+
+def run_launch() -> dict:
+    """Phase 17 on the card, after the earlier phases' tensors are freed."""
+    import torch
+
+    return launch_path(torch.device("cuda"))
+
+
+# --------------------------------------------------------------------------
 # phase 11: the train -> checkpoint -> serve command lines
 # --------------------------------------------------------------------------
 
@@ -4042,6 +4197,9 @@ def main() -> int:
                          "with the repro_torch of --src, and print them as JSON")
     ap.add_argument("--archs", action="store_true",
                     help="only run phase 16 (the model zoo) and print its results as JSON")
+    ap.add_argument("--launch", action="store_true",
+                    help="only run phase 17 (dry-run cells, the rpq cells on the card, the "
+                         "example twins) and print its results as JSON")
     ap.add_argument("--src", default=SRC,
                     help="the src directory --retrieval-us and --adc-batch import "
                          "repro_torch from (default: this checkout's)")
@@ -4079,6 +4237,12 @@ def main() -> int:
 
     if args.archs:
         print(json.dumps({"device": smi, "archs": run_archs()}))
+        return 0
+    if args.launch:
+        t0 = time.perf_counter()
+        launch = run_launch()
+        log(f"[launch] done in {time.perf_counter() - t0:.1f} s")
+        print(json.dumps({"device": smi, "launch": launch}))
         return 0
 
     t0 = time.perf_counter()
@@ -4157,6 +4321,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phases["archs"] = run_archs()
     log(f"[archs] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phases["launch"] = run_launch()
+    log(f"[launch] done in {time.perf_counter() - t0:.1f} s")
     for name, row in kernels.items():
         row["launches"] = sum(p["launches"][name] for p in phases.values())
     log(f"[total] {time.perf_counter() - t_start:.1f} s")

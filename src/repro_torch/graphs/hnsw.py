@@ -16,13 +16,14 @@ builder's.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.graphs.adjacency import Graph, find_medoid
-from repro_torch.graphs.knn import knn_ids
+from repro_torch.graphs.knn import knn_ids, knn_prefix
 from repro_torch.graphs.prune import prune_from_vectors
 from repro_torch.kernels.ops import pad_sentinel_row
 from repro_torch.search.beam import beam_search, make_exact_dist_fn
@@ -47,11 +48,17 @@ class HNSW:
                     self.top_entry.to(device))
 
 
-def _layer_graph(x_layer: torch.Tensor, m: int) -> Graph:
-    """Exact kNN at k = min(max(2m, 8), n − 1), pruned to degree m (α = 1)."""
+def _layer_graph(x_layer: torch.Tensor, m: int, knn: Optional[torch.Tensor] = None) -> Graph:
+    """Exact kNN at k = min(max(2m, 8), n − 1), pruned to degree m (α = 1).
+    ``knn``: the layer's exact self-excluded kNN ids at k or more columns,
+    already computed (its first k columns are the k-NN: ascending distance,
+    ties to the lower id)."""
     n = x_layer.shape[0]
     k = min(max(2 * m, 8), n - 1)
-    ids, _ = knn_ids(x_layer, x_layer, k, exclude_self=True)
+    if knn is None:
+        ids, _ = knn_ids(x_layer, x_layer, k, exclude_self=True)
+    else:
+        ids = knn_prefix(knn, k)
     xp = pad_sentinel_row(x_layer)
     out = torch.empty((n, m), dtype=torch.int32, device=x_layer.device)
     for s in range(0, n, PRUNE_BATCH):
@@ -68,24 +75,28 @@ def hnsw_draws(generator: torch.Generator, n: int) -> np.ndarray:
 
 
 def build_hnsw(x: torch.Tensor, *, generator: torch.Generator, m: int = 16,
-               scale: int = 8, max_layers: int = 4, device=None) -> HNSW:
+               scale: int = 8, max_layers: int = 4, device=None,
+               knn0: Optional[torch.Tensor] = None) -> HNSW:
     """Build layered HNSW over x (N, D) on ``device`` (default ``cuda``).
-    Layer 0 has degree 2m, layer ℓ > 0 degree m and ~n / scale^ℓ members."""
+    Layer 0 has degree 2m, layer ℓ > 0 degree m and ~n / scale^ℓ members.
+    ``knn0``: the base's exact self-excluded kNN ids (``knn_ids(x, x, k,
+    exclude_self=True)``, k ≥ 4m), computed once and shared with NSG's build."""
     dev = resolve_device(device)
     perm = hnsw_draws(generator, x.shape[0])
     return build_hnsw_from_draws(x.to(dev), perm, m=m, scale=scale,
-                                 max_layers=max_layers)
+                                 max_layers=max_layers, knn0=knn0)
 
 
 def build_hnsw_from_draws(x: torch.Tensor, perm, *, m: int = 16,
-                          scale: int = 8, max_layers: int = 4) -> HNSW:
+                          scale: int = 8, max_layers: int = 4,
+                          knn0: Optional[torch.Tensor] = None) -> HNSW:
     """The build itself, on x's device, from a given permutation (see
     module doc): layer ℓ's members are the first n // scale^ℓ of ``perm``,
     sorted, while there are at least max(2m + 2, 16) of them."""
     n = x.shape[0]
     x = x.float().contiguous()
     perm = torch.tensor(np.asarray(perm), dtype=torch.int64, device=x.device)
-    base = _layer_graph(x, 2 * m)   # layer 0 uses 2M (HNSW convention)
+    base = _layer_graph(x, 2 * m, knn0)   # layer 0 uses 2M (HNSW convention)
     layers, members = [], []
     sz = n
     while len(layers) < max_layers - 1:

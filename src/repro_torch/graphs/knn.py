@@ -24,6 +24,9 @@ def topk_lower(d: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     value); their column order is ascending already. Returns (values
     (Q, k), indices (Q, k) int64)."""
     q = d.shape[0]
+    if d.device.type == "meta":   # shapes only: the selection syncs the host
+        return (d.new_empty((q, k)),
+                torch.empty((q, k), dtype=torch.int64, device=d.device))
     thr = torch.topk(d, k, dim=1, largest=False).values[:, -1:]   # sorted
     rows, cols = torch.nonzero(d <= thr, as_tuple=True)   # row-major order
     vals = d[rows, cols]
@@ -34,6 +37,15 @@ def topk_lower(d: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     start = torch.cumsum(counts, 0) - counts
     pos = start[:, None] + torch.arange(k, device=d.device)[None, :]
     return vals[pos], cols[pos]
+
+
+def knn_prefix(knn: torch.Tensor, k: int) -> torch.Tensor:
+    """The k-NN ids from a precomputed :func:`knn_ids` table of k or more
+    columns: its first k (the table is ascending by distance, ties to the
+    lower id, so they are what ``knn_ids`` at k returns)."""
+    if knn.shape[1] < k:
+        raise ValueError(f"a kNN table of {knn.shape[1]} columns; {k} needed")
+    return knn[:, :k].contiguous()
 
 
 def knn_ids(x: torch.Tensor, q: torch.Tensor, k: int, *, block: int = 1024,

@@ -14,12 +14,14 @@ repeats until the BFS reaches every node.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
 from repro_torch.device import full_f32_matmul, resolve_device
 from repro_torch.graphs.adjacency import Graph, find_medoid
-from repro_torch.graphs.knn import knn_ids
+from repro_torch.graphs.knn import knn_ids, knn_prefix
 from repro_torch.graphs.prune import prune_from_vectors
 from repro_torch.kernels.ops import pad_sentinel_row
 from repro_torch.search.beam import beam_search, make_exact_dist_fn
@@ -31,15 +33,21 @@ REPAIR_PASSES = 8
 
 
 def build_nsg(x: torch.Tensor, *, r: int = 32, k: int = 64, search_l: int = 32,
-              batch: int = 1024, device=None) -> Graph:
+              batch: int = 1024, device=None, knn: Optional[torch.Tensor] = None) -> Graph:
     """Build an NSG of degree ≤ ``r`` over x (N, D) on ``device`` (default
-    ``cuda``) from its exact ``k``-NN graph, ``batch`` nodes a round."""
+    ``cuda``) from its exact ``k``-NN graph, ``batch`` nodes a round.
+    ``knn``: that kNN's ids at k or more columns (``knn_ids(x, x, k′,
+    exclude_self=True)``), computed once and shared with HNSW's build;
+    its first k columns are used."""
     dev = resolve_device(device)
     x = x.to(dev).float().contiguous()
     n = x.shape[0]
     xp = pad_sentinel_row(x)
     medoid = find_medoid(x)
-    knn, _ = knn_ids(x, x, min(k, n - 1), exclude_self=True)
+    if knn is None:
+        knn, _ = knn_ids(x, x, min(k, n - 1), exclude_self=True)
+    else:
+        knn = knn_prefix(knn.to(dev), min(k, n - 1))
     dist_fn = make_exact_dist_fn(xp)
 
     nbrs = torch.empty((n, r), dtype=torch.int32, device=dev)

@@ -461,6 +461,92 @@ class ShardedEngine:
 # round is still one hop_adc / hop_adc_fs launch for the whole batch.
 # ==========================================================================
 
+def _graph_scatter(neighbors, medoids, codes, luts, *, k: int, h: int = 32,
+                   max_steps: int = 512, n_valid: Optional[int] = None,
+                   expand: int = 1, entry: Optional[torch.Tensor] = None,
+                   seed_cost: int = 0, prune_eps: float = 0.0, m_prefix: int = 0,
+                   max_rounds=None, max_n_dist=None, vectors=None, queries=None) -> tuple:
+    """The one scatter body of :func:`sharded_graph_topk` and
+    :func:`sharded_graph_serve`: the S·Q shard-local beams as one lockstep
+    beam over the block-diagonal graph, then each lane's LOCAL top-k (or,
+    with ``vectors``, its whole beam re-ranked exactly against its shard's
+    rows). Returns the reference's per-shard outputs: (S, Q, k) global ids
+    (-1 for sentinel and padding slots) and distances (+inf there), and
+    (S, Q) hops, n_dist, rounds and truncated."""
+    s, nl = int(neighbors.shape[0]), int(neighbors.shape[1])
+    q = (luts.lut if _is_packed(luts) else luts).shape[0]
+    nbrs, meds = block_diagonal(PartitionedGraph(neighbors=neighbors, medoids=medoids,
+                                                 n=s * nl))
+    codes_p = kops.pad_sentinel_row(
+        codes.reshape((s * nl,) + tuple(codes.shape[2:]))).contiguous()
+    if entry is None:
+        entry = meds.repeat(q)
+    res = _adc_beam(nbrs, codes_p, entry, luts, seed_cost, h=h,
+                    max_steps=max_steps, expand=expand, prune_eps=prune_eps,
+                    m_prefix=m_prefix, max_rounds=max_rounds,
+                    max_n_dist=max_n_dist, lanes_per_query=s)
+    if vectors is None:
+        ids, d = res.ids[:, :k].long(), res.dists[:, :k]
+    else:
+        # DiskANN-style local refinement: the whole beam re-ranked against
+        # the shard's own rows (sentinel slots rank +inf whatever row the
+        # clamped id reads)
+        vec = vectors.reshape(s * nl, vectors.shape[-1])
+        cand = res.ids.long()
+        cv = vec[cand.clamp(max=s * nl - 1)].reshape(q, -1, vec.shape[1])
+        exact = ((cv - queries.float()[:, None, :]) ** 2).sum(dim=-1).reshape(cand.shape)
+        exact = torch.where(torch.isfinite(res.dists), exact, float("inf"))
+        d, order = torch.sort(exact, dim=1, stable=True)
+        ids, d = cand.gather(1, order[:, :k]), d[:, :k]
+    # sentinel slots and padding rows become (-1, +inf): the merge never
+    # sees them
+    n_valid = s * nl if n_valid is None else n_valid
+    ok = (ids < n_valid) & torch.isfinite(d)
+    lanes = (torch.where(ok, ids, -1), torch.where(ok, d, float("inf")),
+             res.hops, res.n_dist, res.rounds, res.truncated)
+    return tuple(_by_shard(t, s) for t in lanes)
+
+
+def sharded_graph_topk(neighbors: torch.Tensor, medoids: torch.Tensor,
+                       codes: torch.Tensor, luts, *, k: int, **knobs) -> tuple:
+    """Scatter: shard-stacked independent subgraphs × the batch's LUTs →
+    per-shard LOCAL top-k with GLOBAL ids.
+
+    Args:
+      neighbors:  (S, n_local, R) stacked local adjacency (graphs/partition),
+                  sentinel ``n_local``.
+      medoids:    (S,) local entry vertices.
+      codes:      (S, n_local, M) shard-stacked codes, or fs4 (S, n_local,
+                  ceil(M/2)) with a ``QuantizedLUT``.
+      luts:       (Q, M, K) query LUTs (or a ``QuantizedLUT``), shared by
+                  every shard.
+      k:          per-shard shortlist size.
+      knobs:      ``h`` / ``max_steps`` / ``expand`` (each LOCAL beam's
+                  width, round cap and frontier; 32, 512, 1), ``n_valid``
+                  (total REAL rows, masking the last shard's padding),
+                  ``entry`` ((Q·S,) or (Q·S, E) global entry ids, lane q·S +
+                  s; default each shard's medoid) with ``seed_cost`` (the
+                  seed probe's candidates a lane, added to ``n_dist``),
+                  ``prune_eps`` / ``m_prefix`` / ``max_rounds`` /
+                  ``max_n_dist`` (each local beam's pruning and budgets).
+
+    Returns (gids (S, Q, k), dists (S, Q, k), hops, n_dist, rounds,
+    truncated (S, Q)). Each shard routes ONLY over its own subgraph.
+    """
+    return _graph_scatter(neighbors, medoids, codes, luts, k=k, **knobs)
+
+
+def sharded_graph_serve(neighbors: torch.Tensor, medoids: torch.Tensor,
+                        codes: torch.Tensor, vectors: torch.Tensor, luts,
+                        queries: torch.Tensor, *, k: int, **knobs) -> tuple:
+    """Scatter with local exact rerank: like :func:`sharded_graph_topk`, but
+    every shard re-ranks its whole beam against its resident vector rows
+    (S, n_local, D) before answering — the DiskANN shortlist with the SSD
+    replaced by the shard's own memory."""
+    return _graph_scatter(neighbors, medoids, codes, luts, k=k, vectors=vectors,
+                          queries=queries, **knobs)
+
+
 @dataclasses.dataclass
 class ShardedGraphEngine:
     """Graph-ROUTED scatter-gather serving over ``n_shards`` shards.
@@ -507,20 +593,17 @@ class ShardedGraphEngine:
         codes = self.codes.to(self.device)
         self._codes_bytes = codes.numel() * codes.element_size()
         self.codes = codes
-        self._nbrs, self._medoids = block_diagonal(self.graph)
-        self._codes_p = kops.pad_sentinel_row(
-            kops.pad_rows_to_multiple(codes, self.n_shards)).contiguous()
+        self._codes_stk = _stack_rows(codes, self.n_shards, self.n_local).contiguous()
         self._vec_bytes = 0
         if self.vectors is not None:
             vec = self.vectors.to(self.device, torch.float32)
             self._vec_bytes = vec.numel() * 4
-            self._vec_p = kops.pad_sentinel_row(
-                kops.pad_rows_to_multiple(vec, self.n_shards))
+            self._vec_stk = _stack_rows(vec, self.n_shards, self.n_local)
             self.vectors = vec
         self._seedstk = None
 
     def _shard_codes(self, s: int) -> torch.Tensor:
-        return self._codes_p[s * self.n_local:(s + 1) * self.n_local]
+        return self._codes_stk[s]
 
     def _seed_stack(self, luts) -> tuple:
         """Per-shard coarse seeding indexes, built on the first ``entries >
@@ -552,7 +635,7 @@ class ShardedGraphEngine:
         shard's own seeded entry set (global ids, -1 padding). Returns
         ((Q·S,) or (Q·S, entries) ids, the seed probe's cost per lane)."""
         if entries <= 1:
-            return self._medoids.repeat(q), 0
+            return None, 0
         tables, pivots, k, m_hash, cost = self._seed_stack(luts)
         per = []
         for s in range(self.n_shards):
@@ -561,34 +644,18 @@ class ShardedGraphEngine:
             per.append(torch.where(e >= 0, e + s * self.n_local, -1))
         return torch.stack(per, dim=1).reshape(q * self.n_shards, entries), cost
 
-    def _scatter(self, luts, queries: torch.Tensor, *, k: int, h: int,
-                 max_steps: int, expand: int, entries: int, prune_eps: float,
-                 m_prefix: int, max_rounds, max_n_dist) -> tuple:
-        """Every shard's LOCAL answer: (Q·S, k) global ids (-1 for sentinel
-        and padding slots) and distances (+inf there), and the (Q·S,)
-        counters of each lane's beam."""
-        q = queries.shape[0]
-        entry, seed_cost = self._entries(luts, q, entries)
-        res = _adc_beam(self._nbrs, self._codes_p, entry, luts, seed_cost, h=h,
-                        max_steps=max_steps, expand=expand, prune_eps=prune_eps,
-                        m_prefix=m_prefix, max_rounds=max_rounds,
-                        max_n_dist=max_n_dist, lanes_per_query=self.n_shards)
+    def _scatter(self, luts, queries: torch.Tensor, *, k: int, entries: int,
+                 **knobs) -> tuple:
+        """Every shard's LOCAL answer through :func:`sharded_graph_topk` (or
+        :func:`sharded_graph_serve` with vectors): (S, Q, k) global ids and
+        distances, and the (S, Q) counters of each shard's beam."""
+        entry, seed_cost = self._entries(luts, queries.shape[0], entries)
+        stk = dict(k=k, n_valid=self.n, entry=entry, seed_cost=seed_cost, **knobs)
+        nbrs, meds = self.graph.neighbors, self.graph.medoids
         if self.vectors is None:
-            ids, d = res.ids[:, :k].long(), res.dists[:, :k]
-        else:
-            # DiskANN-style local refinement: the whole beam re-ranked
-            # against the shard's own rows (the sentinel reads a zero row)
-            cand = res.ids.long()
-            cv = self._vec_p[cand].reshape(q, -1, self._vec_p.shape[1])
-            exact = ((cv - queries[:, None, :]) ** 2).sum(dim=-1).reshape(cand.shape)
-            exact = torch.where(torch.isfinite(res.dists), exact, float("inf"))
-            d, order = torch.sort(exact, dim=1, stable=True)
-            ids, d = cand.gather(1, order[:, :k]), d[:, :k]
-        # local ids → global: sentinel slots and padding rows become
-        # (-1, +inf), so the merge never sees them
-        ok = (ids < self.n) & torch.isfinite(d)
-        return (torch.where(ok, ids, -1), torch.where(ok, d, float("inf")),
-                res)
+            return sharded_graph_topk(nbrs, meds, self._codes_stk, luts, **stk)
+        return sharded_graph_serve(nbrs, meds, self._codes_stk, self._vec_stk, luts,
+                                   queries, **stk)
 
     def search(self, queries: torch.Tensor, *, k: int = 10, h: int = 32,
                max_steps: int = 512, expand: int = 1,
@@ -614,7 +681,7 @@ class ShardedGraphEngine:
         queries = torch.atleast_2d(queries.to(self.device, torch.float32))
         kk = min(k, h, self.n_local)
         luts = self.lut_fn(queries)
-        gids, dists, res = self._scatter(
+        gids, dists, hops, n_dist, rounds, truncated = self._scatter(
             luts, queries, k=kk, h=h, max_steps=max_steps, expand=expand,
             entries=entries, prune_eps=prune_eps, m_prefix=m_prefix,
             max_rounds=max_rounds, max_n_dist=max_n_dist)
@@ -626,17 +693,15 @@ class ShardedGraphEngine:
             decision = resolve_quorum(alive, lat, deadline_s, quorum)
             alive = list(decision.alive)
             quorum_degraded = decision.degraded
-        s = self.n_shards
-        merged = partial_merge(list(_by_shard(gids, s)), list(_by_shard(dists, s)),
-                               alive, k)
+        merged = partial_merge(list(gids), list(dists), alive, k)
         q = queries.shape[0]
         mask = torch.tensor(alive, dtype=torch.bool, device=self.device)
         if bool(mask.any()):
-            lanes = lambda t: t.reshape(q, s)[:, mask]
-            counters = dict(hops=lanes(res.hops).sum(dim=1, dtype=torch.int32),
-                            n_dist=lanes(res.n_dist).sum(dim=1, dtype=torch.int32),
-                            rounds=lanes(res.rounds).amax(dim=1),
-                            truncated=lanes(res.truncated).any(dim=1))
+            lanes = lambda t: t.transpose(0, 1)[:, mask]
+            counters = dict(hops=lanes(hops).sum(dim=1, dtype=torch.int32),
+                            n_dist=lanes(n_dist).sum(dim=1, dtype=torch.int32),
+                            rounds=lanes(rounds).amax(dim=1),
+                            truncated=lanes(truncated).any(dim=1))
         else:  # every shard dead: sentinel answer, zero-work counters
             counters = _zero_counters(q, self.device)
         return SearchResult(merged.ids, merged.dists,

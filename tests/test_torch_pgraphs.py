@@ -17,7 +17,7 @@ from repro.search.engine import HybridEngine as JHybrid
 from repro.search.engine import InMemoryEngine as JInMemory
 from repro_torch import convert
 from repro_torch.graphs import hnsw, nsg
-from repro_torch.graphs.knn import knn_ids
+from repro_torch.graphs.knn import knn_ids, knn_prefix
 from repro_torch.search.engine import HybridEngine, InMemoryEngine
 
 N, D, NQ = 2000, 16, 64
@@ -272,3 +272,29 @@ def test_engines_with_entry_fn_match_jax(hnsw_pair, tie_free, engine):
     seeded = te.search(T(q), k=10, h=24, entries=4)
     _assert_same_result(seeded, je.search(jnp.asarray(q), k=10, h=24, entries=4))
     _assert_same_result(seeded, plain.search(T(q), k=10, h=24, entries=4))
+
+
+@pytest.mark.parametrize("data", ["float_repeats", "int_repeats"])
+def test_one_shared_knn_serves_hnsw_and_nsg(data):
+    """The first 32 columns of the k=48 kNN are the k=32 kNN bit for bit,
+    ties included, so HNSW's layer 0 (m=12: k=48) and NSG (k=32) can share
+    one exact kNN; HNSW and NSG then give the graphs they build alone."""
+    r = np.random.default_rng(21)
+    if data == "float_repeats":
+        x = np.repeat(_clustered(22, 200, 8), 3, axis=0)[r.permutation(600)]
+    else:
+        x = np.repeat(r.integers(-3, 4, (200, 8)), 3, axis=0)[r.permutation(600)]
+    x = T(x.astype(np.float32))
+    ids48, d48 = knn_ids(x, x, 48, block=256, exclude_self=True)
+    ids32, d32 = knn_ids(x, x, 32, block=256, exclude_self=True)
+    assert torch.equal(knn_prefix(ids48, 32), ids32) and torch.equal(d48[:, :32], d32)
+    with pytest.raises(ValueError):
+        knn_prefix(ids32, 48)
+    perm = np.random.default_rng(4).permutation(600)
+    alone = hnsw.build_hnsw_from_draws(x, perm, m=12)
+    shared = hnsw.build_hnsw_from_draws(x, perm, m=12, knn0=ids48)
+    for a, b in zip((alone.base, *alone.layers), (shared.base, *shared.layers)):
+        assert torch.equal(a.neighbors, b.neighbors) and int(a.medoid) == int(b.medoid)
+    g1 = nsg.build_nsg(x, r=16, k=32, search_l=24, batch=300, device="cpu")
+    g2 = nsg.build_nsg(x, r=16, k=32, search_l=24, batch=300, device="cpu", knn=ids48)
+    assert torch.equal(g1.neighbors, g2.neighbors) and int(g1.medoid) == int(g2.medoid)
