@@ -1,0 +1,3 @@
+"""device_idle.online: percent of the traced window with nothing running on the card."""
+
+from perfbench.readers import device_idle as read  # noqa: F401
