@@ -55,6 +55,13 @@ value bit-identical to the classic beam:
 ``make_adc_dist_fn(tombstones=)`` bakes a deleted-vertex mask into the
 distance function instead (a frozen snapshot's variant: dead ids score
 +inf, with neither the dead-entry rescue nor the scrub).
+
+With the recorder of :mod:`repro_torch.common.spans` on, the beam emits the
+span ``beam.init`` (from its start through the first ``bool(live.any())``)
+and one ``beam.round`` per round (the loop's body through the
+``bool(live.any())`` that decides the next round), and counts ``sync`` at
+each of those waits for the card and at each of the hop-pruning set-up's
+scalar copies to the card. Ops and their order are the same on and off.
 """
 
 from __future__ import annotations
@@ -65,6 +72,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.common import spans
 from repro_torch.kernels import ops as kops
 from repro_torch.pq.pack import QuantizedLUT
 
@@ -252,10 +260,27 @@ def _per_lane(fn: Callable, nq_data: int) -> Callable:
     return lane_fn
 
 
+def _any_live(live: torch.Tensor) -> bool:
+    """Whether any lane is still live: the host waits for the card here,
+    once before the first round and once after each."""
+    if spans.on:
+        spans.count("sync")
+    return bool(live.any())
+
+
+def _scalar(x: float, dev) -> torch.Tensor:
+    """``x`` as a float32 scalar on ``dev``: a copy from the host that makes
+    the host wait for the card (counted as a ``sync`` on any device)."""
+    if spans.on:
+        spans.count("sync")
+    return torch.tensor(x, dtype=torch.float32, device=dev)
+
+
 def _beam(neighbors, entry, qdatas, dist_fn, *, h, max_steps, expand,
           trace_len, tombstones=None, lb_dist_fn=None, m_prefix=0, m_total=0,
           prune_eps=0.0, lb_scale_fn=None, max_rounds=None, max_n_dist=None,
           lanes_per_query=1):
+    sp = spans.begin("beam.init") if spans.on else -1
     n, r = neighbors.shape
     dev = neighbors.device
     nq = (qdatas.lut if isinstance(qdatas, QuantizedLUT) else qdatas).shape[0]
@@ -276,10 +301,8 @@ def _beam(neighbors, entry, qdatas, dist_fn, *, h, max_steps, expand,
     if prune:
         # d̂ = d_lb · cal, folded with (1+ε) into one per-query gate scale
         cal = (lb_scale_fn(qdatas) if lb_scale_fn is not None
-               else torch.tensor(float(m_total), dtype=torch.float32, device=dev)
-               / torch.tensor(float(m_prefix), dtype=torch.float32, device=dev))
-        gate = (cal * torch.tensor(1.0 + prune_eps, dtype=torch.float32,
-                                   device=dev)).reshape(-1, 1)
+               else _scalar(float(m_total), dev) / _scalar(float(m_prefix), dev))
+        gate = (cal * _scalar(1.0 + prune_eps, dev)).reshape(-1, 1)
         if lanes_per_query > 1 and gate.shape[0] > 1:   # one row per lane
             gate = gate.repeat_interleave(lanes_per_query, dim=0)
 
@@ -346,7 +369,11 @@ def _beam(neighbors, entry, qdatas, dist_fn, *, h, max_steps, expand,
         return live
 
     live = live_lanes()
-    while bool(live.any()):
+    going = _any_live(live)
+    if sp >= 0:
+        spans.end(sp)
+    while going:
+        sp = spans.begin("beam.round") if spans.on else -1
         # 1. pick the best `e` unexpanded beam entries (ties → lower slot)
         cand = torch.where(~exp & (dists < INF), dists, INF)
         sel_d, sel = torch.sort(cand, dim=1, stable=True)
@@ -406,6 +433,9 @@ def _beam(neighbors, entry, qdatas, dist_fn, *, h, max_steps, expand,
             tbv[lanes, slot] = tbv[lanes, slot] | rec
         step = step + live.to(torch.int32)
         live = live_lanes()
+        going = _any_live(live)
+        if sp >= 0:
+            spans.end(sp)
 
     if prune:
         # subspace units → full-LUT equivalents (a lone partial score still

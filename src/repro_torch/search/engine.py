@@ -48,6 +48,13 @@ beam. The streaming engine (``index/engine.py``) reuses ``_bulk_adc``,
 ``InMemoryEngine`` and ``HybridEngine`` take ``entry_fn(queries) → (Q,)``
 entry ids (HNSW's ``descend``); an entry set (``entries > 1``) wins over
 it, and without either the beam starts at the medoid.
+
+With the recorder of :mod:`repro_torch.common.spans` on, each
+``InMemoryEngine.search`` and ``HybridEngine.search`` call is one span tree:
+the root ``search``, then ``search.lut`` around ``lut_fn``, ``search.route``
+around the entry choice, the seed probe and the beam (whose ``beam.init``
+and ``beam.round`` spans it holds), and, in ``HybridEngine``,
+``search.rerank`` around the exact rerank. Ops and their order are the same on and off.
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from repro_torch.common import spans
 from repro_torch.device import resolve_device, visible_cuda_devices
 from repro_torch.dist import retry as _retry
 from repro_torch.dist.fault import partial_merge, resolve_quorum
@@ -128,6 +136,7 @@ class _GraphRouting:
         probe's scored candidates. The entry: a seeded set when ``entries >
         1``, else ``entry_fn(queries)`` when the engine has one, else the
         medoid (the reference's precedence)."""
+        sp = spans.begin("search.route") if spans.on else -1
         seed_cost = 0
         if entries > 1:
             ix = self._seed_index(luts)
@@ -137,10 +146,21 @@ class _GraphRouting:
             entry = self.entry_fn(queries)
         else:
             entry = self.graph.medoid
-        return _adc_beam(self.graph.neighbors, self._codes_p, entry, luts,
-                         seed_cost, h=h, max_steps=max_steps, expand=expand,
-                         prune_eps=prune_eps, m_prefix=m_prefix,
-                         max_rounds=max_rounds, max_n_dist=max_n_dist)
+        res = _adc_beam(self.graph.neighbors, self._codes_p, entry, luts,
+                        seed_cost, h=h, max_steps=max_steps, expand=expand,
+                        prune_eps=prune_eps, m_prefix=m_prefix,
+                        max_rounds=max_rounds, max_n_dist=max_n_dist)
+        if sp >= 0:
+            spans.end(sp)
+        return res
+
+    def _luts(self, queries):
+        """``lut_fn(queries)``, in the span ``search.lut``."""
+        sp = spans.begin("search.lut") if spans.on else -1
+        luts = self.lut_fn(queries)
+        if sp >= 0:
+            spans.end(sp)
+        return luts
 
 
 def _adc_beam(neighbors, codes_p, entry, luts, seed_cost: int, *, h, max_steps,
@@ -187,13 +207,18 @@ class InMemoryEngine(_GraphRouting):
         """``max_rounds`` / ``max_n_dist`` are per-call budgets (DESIGN.md
         §13); an exhausted query returns best-so-far with
         ``truncated=True``."""
-        queries = queries.to(self.device)
-        res = self._route(self.lut_fn(queries), queries, h=h,
-                          max_steps=max_steps, expand=expand, entries=entries,
-                          prune_eps=prune_eps, m_prefix=m_prefix,
-                          max_rounds=max_rounds, max_n_dist=max_n_dist)
-        return SearchResult(res.ids[:, :k], res.dists[:, :k], res.hops,
-                            res.n_dist, res.rounds, res.truncated)
+        sp = spans.begin("search") if spans.on else -1
+        try:
+            queries = queries.to(self.device)
+            res = self._route(self._luts(queries), queries, h=h,
+                              max_steps=max_steps, expand=expand, entries=entries,
+                              prune_eps=prune_eps, m_prefix=m_prefix,
+                              max_rounds=max_rounds, max_n_dist=max_n_dist)
+            return SearchResult(res.ids[:, :k], res.dists[:, :k], res.hops,
+                                res.n_dist, res.rounds, res.truncated)
+        finally:
+            if sp >= 0:
+                spans.end(sp)
 
     def memory_bytes(self) -> int:
         return (self.codes.numel() * self.codes.element_size()
@@ -230,17 +255,25 @@ class HybridEngine(_GraphRouting):
         skip_rerank = rerank < 0
         rerank = h if rerank <= 0 else rerank
         k = min(k, rerank)  # cannot return more results than candidates
-        queries = queries.to(self.device)
-        res = self._route(self.lut_fn(queries), queries, h=h,
-                          max_steps=max_steps, expand=expand, entries=entries,
-                          prune_eps=prune_eps, m_prefix=m_prefix,
-                          max_rounds=max_rounds, max_n_dist=max_n_dist)
-        if skip_rerank:
-            ids, dists = res.ids[:, :k], res.dists[:, :k]
-        else:
-            ids, dists = _exact_rerank(self._vec_p, queries, res.ids, rerank, k)
-        return SearchResult(ids, dists, res.hops, res.n_dist, res.rounds,
-                            res.truncated)
+        sp = spans.begin("search") if spans.on else -1
+        try:
+            queries = queries.to(self.device)
+            res = self._route(self._luts(queries), queries, h=h,
+                              max_steps=max_steps, expand=expand, entries=entries,
+                              prune_eps=prune_eps, m_prefix=m_prefix,
+                              max_rounds=max_rounds, max_n_dist=max_n_dist)
+            if skip_rerank:
+                ids, dists = res.ids[:, :k], res.dists[:, :k]
+            else:
+                rp = spans.begin("search.rerank") if spans.on else -1
+                ids, dists = _exact_rerank(self._vec_p, queries, res.ids, rerank, k)
+                if rp >= 0:
+                    spans.end(rp)
+            return SearchResult(ids, dists, res.hops, res.n_dist, res.rounds,
+                                res.truncated)
+        finally:
+            if sp >= 0:
+                spans.end(sp)
 
     def io_time(self, res: SearchResult, *, expand: int = 1, entries: int = 1,
                 io_fault_p: float = 0.0, retry: Optional[_retry.RetryPolicy] = None,
