@@ -8,7 +8,7 @@
 Phases, each of which ends the run with a non-zero exit when it fails:
 
 1. device: the card's ``nvidia-smi`` name and power limit, torch's name;
-2. build: the seven CUDA kernels from ``src/repro_torch/kernels/csrc`` (six
+2. build: the nine CUDA kernels from ``src/repro_torch/kernels/csrc`` (seven
    sources; four of them also as int32-code variants), one ``nvcc`` per
    source, all at once;
 3. parity: each kernel against its plain PyTorch version on CUDA tensors, at
@@ -43,7 +43,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    its plan should move (``adc_batch_i32_bytes``) and its diagnostic rows
    (``adc_batch_rows``: int32 at K=512 at 100k, 250k and 1M rows, int32
    against uint8 at K=256, and the streaming round's 1000 × 50,000 delta
-   shape, each bit for bit);
+   shape, each bit for bit); last the classic beam round's two kernels
+   (``beam_round_rows``: ``beam_expand`` and ``beam_merge`` at 10,000
+   lanes, h = 96, R = 64 on a random graph over the base's vertex count),
+   one whole search through them equal to the op chain bit for bit, and
+   each kernel's time beside its plain version's and its bound, its timed
+   outputs equal to the plain version's;
 4. small reference: the unit-test dataset served on the card and on the CPU
    (the plain versions) from the same graph and quantizer must agree; at
    S=4, one partition built on the CPU served by ``ShardedGraphEngine``
@@ -262,6 +267,8 @@ over those counted runs; the int32 variants are rows of their own), the ``nvidia
 Without CUDA, or run outside the repository, it exits non-zero and prints no
 result. It imports nothing of JAX and nothing of the JAX package.
 
+``--beam-round`` runs only the round kernels' rows (phase 3's last part,
+~1 min with its nvcc builds) and prints them as JSON.
 ``--retrieval-us [--src DIR]`` runs none of this: it times phase 9's
 per-query loop alone (``retrieval_us``) on seeded codes, with the
 ``repro_torch`` of ``DIR``, and prints one JSON line, so two trees (one
@@ -1223,6 +1230,208 @@ def wide_parity_and_timing(n_base: int, n_query: int) -> dict:
         log(f"[time] {row['name']} {row['shape']}: kernel {row['ms']:.4f} ms{l2_note(row)}, plain "
             f"{row['plain_ms']:.4f} ms, library {row['library_ms']}, bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}){sector_note(row)}")
+    return {row["name"]: row for row in rows}
+
+
+# The classic beam round's kernels at the benchmark's widths (phase 3 and
+# --beam-round): lanes, beam slots, degree, rounds run before the timed ones
+# and rounds timed.
+ROUND_LANES, ROUND_H, ROUND_R = 10_000, 96, 64
+ROUND_WARM, ROUND_TIMED = 20, 10
+
+
+def round_state(nbrs, entry, luts, dist_fn, h: int, rounds: int) -> dict:
+    """The beam state of ``beam.beam_search`` (single entry, no knobs) after
+    ``rounds`` classic rounds, built with the round's entry points."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    dev, (n, _), q = nbrs.device, nbrs.shape, entry.shape[0]
+    st = dict(ids=torch.full((q, h), n, dtype=torch.int64, device=dev),
+              dists=torch.full((q, h), float("inf"), device=dev),
+              exp=torch.ones((q, h), dtype=torch.bool, device=dev),
+              live=torch.ones(q, dtype=torch.bool, device=dev),
+              visited=torch.zeros((q, (n + 31) // 32 + 1), dtype=torch.int32, device=dev),
+              hops=torch.zeros(q, dtype=torch.int32, device=dev),
+              ndist=torch.ones(q, dtype=torch.int32, device=dev),
+              step=torch.zeros(q, dtype=torch.int32, device=dev),
+              count=torch.zeros((), dtype=torch.int32, device=dev), n=n)
+    st["ids"][:, 0] = entry
+    st["dists"][:, 0] = dist_fn(luts, entry[:, None])[:, 0]
+    st["exp"][:, 0] = False
+    ref.scatter_bits_(st["visited"], entry[:, None].long(),
+                      torch.ones((q, 1), dtype=torch.bool, device=dev))
+    for _ in range(rounds):
+        expand_once(ops.beam_expand, nbrs, st)
+        merge_once(ops.beam_merge, st, *st["last"], dist_fn(luts, st["last"][0]))
+    return st
+
+
+def expand_once(fn, nbrs, st):
+    st["last"] = fn(nbrs, st["ids"], st["dists"], st["exp"], st["live"], st["visited"],
+                    st["hops"], st["ndist"], st["count"])
+    return st["last"]
+
+
+def merge_once(fn, st, front, fresh, front_d):
+    return fn(st["ids"], st["dists"], st["exp"], front, fresh, front_d, st["live"],
+              st["step"], st["ndist"], st["count"], n=st["n"], max_steps=1 << 30)
+
+
+def captured_ms(calls, restore, reps: int = 3) -> tuple[float, list]:
+    """Device ms of one of ``calls`` (a list of no-argument calls, captured
+    into one CUDA graph), each replay starting from ``restore()`` (outside
+    the events): the median over ``reps`` replays, and the outputs of the
+    last."""
+    import torch
+
+    restore()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [c() for c in calls]
+    times = []
+    for _ in range(reps):
+        restore()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / len(calls))
+    return statistics.median(times), outs
+
+
+def beam_round_rows(n_base: int, n_query: int = ROUND_LANES, h: int = ROUND_H,
+                    r: int = ROUND_R) -> dict:
+    """The classic beam round's two kernels (``csrc/beam_round.cu``) on a
+    random graph of ``n_base`` vertices and degree ``r`` (a tenth of the
+    slots the sentinel), u8 codes (M=16, K=256) and random LUTs, ``n_query``
+    lanes at beam width ``h``. First one whole ``beam_search`` through the
+    kernels and through their plain versions (``ops.beam_expand`` /
+    ``ops.beam_merge`` swapped for ``ref.beam_expand_ref`` /
+    ``ref.beam_merge_ref``): bit for bit equal, the kernels launched once a
+    round, the host's ms a round on each route. Then each kernel over
+    ROUND_TIMED successive rounds from the state after ROUND_WARM rounds,
+    captured in one CUDA graph and replayed from a restored state, beside
+    its plain version likewise; the end states and every timed output of
+    the two must be equal. Bounds: bytes, counted on the timed rounds
+    (``beam_expand``: each lane's beam dists and flags, its beam id and
+    adjacency row, two 32-byte sectors a fresh id for the visited test and
+    its atomic, the frontier out; ``beam_merge``: the beam read and written
+    back, the frontier and the distances read)."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.search import beam
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4321)
+    m, k = 16, 256
+    nbrs = torch.randint(0, n_base, (n_base, r), generator=g, device=dev, dtype=torch.int32)
+    nbrs[torch.rand((n_base, r), generator=g, device=dev) < 0.1] = n_base
+    codes = ops.pad_sentinel_row(torch.randint(0, k, (n_base, m), generator=g, device=dev,
+                                               dtype=torch.int32).to(torch.uint8))
+    luts = torch.rand((n_query, m, k), generator=g, device=dev) * 20.0
+    entry = torch.randint(0, n_base, (n_query,), generator=g, device=dev)
+    fn = beam.make_adc_dist_fn(codes)
+    plain = {ops.beam_expand: ref.beam_expand_ref, ops.beam_merge: ref.beam_merge_ref}
+
+    @contextlib.contextmanager
+    def plain_round():
+        saved = ops.beam_expand, ops.beam_merge
+        ops.beam_expand, ops.beam_merge = ref.beam_expand_ref, ref.beam_merge_ref
+        try:
+            yield
+        finally:
+            ops.beam_expand, ops.beam_merge = saved
+
+    def search():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = beam.beam_search(nbrs, entry, luts, fn, h=h)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    search()                                       # builds and warms
+    ops.reset_launch_counts()
+    got, s_kern = search()
+    launches = ops.launch_counts()
+    with plain_round():
+        search()
+        want, s_plain = search()
+    fields = ("ids", "dists", "hops", "n_dist", "rounds", "truncated")
+    check(all(torch.equal(bits(getattr(got, f)), bits(getattr(want, f))) for f in fields),
+          "beam_search through the round kernels equals the op chain bit for bit")
+    rounds = int(got.rounds.max())
+    check(launches["beam_expand"] == launches["beam_merge"] == rounds,
+          f"one launch of each round kernel a round ({launches})")
+    log(f"[round] beam_search Q={n_query} h={h} R={r} over {n_base} vertices: {rounds} rounds, "
+        f"equal to the op chain bit for bit; host {1e3 * s_kern / rounds:.4f} ms a round "
+        f"through the kernels, {1e3 * s_plain / rounds:.4f} through the op chain; "
+        f"launches {launches['beam_expand']} + {launches['beam_merge']}")
+
+    st = round_state(nbrs, entry, luts, fn, h, ROUND_WARM)
+    names = ("ids", "dists", "exp", "live", "visited", "hops", "ndist", "step")
+    snap = {name: st[name].clone() for name in names}
+
+    def restore():
+        for name in names:
+            st[name].copy_(snap[name])
+
+    def end_state():
+        return {name: st[name].clone() for name in names}
+
+    rows, timed = [], {}
+    for route, expand in (("kernel", ops.beam_expand), ("plain", plain[ops.beam_expand])):
+        ms, outs = captured_ms([lambda e=expand: expand_once(e, nbrs, st)] * ROUND_TIMED, restore)
+        timed[route] = (ms, [torch.cat([f.to(torch.int32)[None], s.to(torch.int32)[None]])
+                             for f, s in outs], end_state())
+    same = (all(torch.equal(a, b) for a, b in zip(timed["kernel"][1], timed["plain"][1]))
+            and all(torch.equal(timed["kernel"][2][n], timed["plain"][2][n]) for n in names))
+    check(same, "beam_expand's timed outputs and end state equal its plain version's")
+    fresh_ids = sum(int(o[1].sum()) for o in timed["kernel"][1])
+    nbytes = (ROUND_TIMED * n_query * (5 * h + 8 + 4 * r + 5 * r + 9) + 64 * fresh_ids) / ROUND_TIMED
+    b_ms, b_by = bound(nbytes, 0)
+    rows.append(dict(name="beam_expand", route="cuda",
+                     source="src/repro_torch/kernels/csrc/beam_round.cu",
+                     replaces="none: the beam's op chain",
+                     shape=f"Q={n_query} h={h} R={r}, graph {n_base} x {r}",
+                     ms=timed["kernel"][0], plain_ms=timed["plain"][0], bound_ms=b_ms,
+                     bound_by=b_by, library_ms=None, library_call=None,
+                     max_abs_err=0.0, launches=launches["beam_expand"],
+                     search_ms_a_round=1e3 * s_kern / rounds,
+                     plain_search_ms_a_round=1e3 * s_plain / rounds))
+
+    restore()
+    front, fresh = expand_once(ops.beam_expand, nbrs, st)
+    front_d = fn(luts, front)
+    snap = {name: st[name].clone() for name in names}
+    timed = {}
+    for route, merge in (("kernel", ops.beam_merge), ("plain", plain[ops.beam_merge])):
+        ms, _ = captured_ms([lambda mg=merge: merge_once(mg, st, front, fresh, front_d)]
+                            * ROUND_TIMED, restore)
+        timed[route] = (ms, end_state())
+    check(all(torch.equal(bits(timed["kernel"][1][n]), bits(timed["plain"][1][n]))
+              for n in names), "beam_merge's end state equals its plain version's")
+    b_ms, b_by = bound(n_query * (2 * 13 * h + 9 * r + 13), 0)
+    rows.append(dict(name="beam_merge", route="cuda",
+                     source="src/repro_torch/kernels/csrc/beam_round.cu",
+                     replaces="none: the beam's op chain",
+                     shape=f"Q={n_query} h={h} R={r}",
+                     ms=timed["kernel"][0], plain_ms=timed["plain"][0], bound_ms=b_ms,
+                     bound_by=b_by, library_ms=None, library_call=None,
+                     max_abs_err=0.0, launches=launches["beam_merge"]))
+    for row in rows:
+        log(f"[time] {row['name']} {row['shape']}: kernel {row['ms']:.4f} ms (one round, "
+            f"graph replay of {ROUND_TIMED} rounds), plain {row['plain_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), equal to the plain version")
     return {row["name"]: row for row in rows}
 
 
@@ -4200,6 +4409,9 @@ def main() -> int:
     ap.add_argument("--launch", action="store_true",
                     help="only run phase 17 (dry-run cells, the rpq cells on the card, the "
                          "example twins) and print its results as JSON")
+    ap.add_argument("--beam-round", action="store_true",
+                    help="only run the classic beam round's kernels at the benchmark's "
+                         "widths (beam_round_rows) and print their rows as JSON")
     ap.add_argument("--src", default=SRC,
                     help="the src directory --retrieval-us and --adc-batch import "
                          "repro_torch from (default: this checkout's)")
@@ -4238,6 +4450,14 @@ def main() -> int:
     if args.archs:
         print(json.dumps({"device": smi, "archs": run_archs()}))
         return 0
+    if args.beam_round:
+        for name, text in _build.build(("beam_round", "hop_adc")).items():
+            for line in text.splitlines():
+                if "Used" in line or "spill" in line or "properties for" in line:
+                    log(f"[build] {name}: {line.strip()}")
+        rows = beam_round_rows(max(int(100_000 * args.scale), 1000))
+        print(json.dumps({"device": smi, "rows": rows}))
+        return 0
     if args.launch:
         t0 = time.perf_counter()
         launch = run_launch()
@@ -4261,6 +4481,7 @@ def main() -> int:
     scorer_rows, backward = scorer_parity_and_timing(n_base, 1000)
     kernels.update(scorer_rows)
     kernels.update(wide_parity_and_timing(n_base, 1000))
+    kernels.update(beam_round_rows(n_base))
     log(f"[parity] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     small_reference()

@@ -23,7 +23,9 @@ clears them. The recorder serves one thread: the caller that searches.
 Spans of the search path (``search/engine.py``, ``search/beam.py``):
 ``search`` (the root of a call), ``search.lut``, ``search.route``,
 ``beam.init``, ``beam.round`` (one per round of the lockstep loop) and
-``search.rerank``; counter ``sync``, one per wait of the host for the card.
+``search.rerank``; counters ``sync``, one per wait of the host for the
+card, and ``beam.fused``, one per classic round (``expand=1``, no hop
+pruning), which runs through ``ops.beam_expand`` and ``ops.beam_merge``.
 """
 
 from __future__ import annotations

@@ -112,7 +112,7 @@ def hop_adc(codes: torch.Tensor, ids: torch.Tensor, luts: torch.Tensor, *,
     for name, t, dtypes, ndim in (("codes", codes, CODE_DTYPES, 2),
                                   ("ids", ids, (torch.int32,), 2),
                                   ("luts", luts, (torch.float32,), 3)):
-        if t.device.type != "cuda" or t.device != codes.device:
+        if not t.is_cuda or t.get_device() != codes.get_device():
             raise ValueError(f"hop_adc: {name} must be on {codes.device} (CUDA)")
         if t.dtype not in dtypes or t.dim() != ndim or not t.is_contiguous():
             raise ValueError(f"hop_adc: {name} must be a contiguous {ndim}-d "

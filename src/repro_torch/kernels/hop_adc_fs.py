@@ -77,7 +77,7 @@ def hop_adc_fs(packed: torch.Tensor, ids: torch.Tensor, luts_u8: torch.Tensor,
     for name, t, dtype, ndim in (("packed", packed, torch.uint8, 2),
                                  ("ids", ids, torch.int32, 2),
                                  ("luts_u8", luts_u8, torch.uint8, 3)):
-        if t.device.type != "cuda" or t.device != packed.device:
+        if not t.is_cuda or t.get_device() != packed.get_device():
             raise ValueError(f"hop_adc_fs: {name} must be on {packed.device} (CUDA)")
         if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
             raise ValueError(f"hop_adc_fs: {name} must be a contiguous {ndim}-d "

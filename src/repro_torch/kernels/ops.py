@@ -23,6 +23,7 @@ import torch
 from repro_torch.device import full_f32_matmul
 from repro_torch.kernels import adc_scan as _adc
 from repro_torch.kernels import adc_scan_fs as _adcfs
+from repro_torch.kernels import beam_round as _round
 from repro_torch.kernels import hop_adc as _hop
 from repro_torch.kernels import hop_adc_fs as _hopfs
 from repro_torch.kernels import hop_gather as _hopg
@@ -230,10 +231,53 @@ def hop_adc_fs(packed: torch.Tensor, ids: torch.Tensor, luts_u8: torch.Tensor,
     return _dequant(acc, scale, bias, mp or m)
 
 
+def beam_expand(neighbors: torch.Tensor, ids: torch.Tensor, dists: torch.Tensor,
+                exp: torch.Tensor, live: torch.Tensor, visited: torch.Tensor,
+                hops: torch.Tensor, ndist: torch.Tensor, count: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """First half of a classic beam round (``expand=1``, no hop pruning):
+    each live lane of the (Q, h) sorted beam expands its best unexpanded
+    finite entry over the (N, R) int32 adjacency. Updates the expanded
+    flags, the (Q, W) visited bitsets, hops and n_dist in place; returns the
+    (Q, R) int32 frontier ids (0 where not fresh), a new tensor every call,
+    and the (Q, R) bool fresh mask. ``count`` is the 0-d int32 live count
+    of :func:`beam_merge`."""
+    if ids.is_cuda:
+        return _round.beam_expand(neighbors, ids, dists, exp, live, visited, hops,
+                                  ndist, count)
+    return _ref.beam_expand_ref(neighbors, ids, dists, exp, live, visited, hops,
+                                ndist, count)
+
+
+def beam_merge(ids: torch.Tensor, dists: torch.Tensor, exp: torch.Tensor,
+               front: torch.Tensor, fresh: torch.Tensor, front_d: torch.Tensor,
+               live: torch.Tensor, step: torch.Tensor, ndist: torch.Tensor,
+               count: torch.Tensor, *, n: int, tombstones=None, max_steps: int,
+               max_rounds=None, max_n_dist=None) -> torch.Tensor:
+    """Second half of a classic beam round: merges the frontier of
+    :func:`beam_expand`, scored by the distance call as ``front_d``, into
+    each live lane's beam (the h best of a stable sort of beam ++ frontier),
+    counts the round in ``step`` and re-evaluates ``live`` under
+    ``max_steps`` and the budgets, all in place. Returns ``count``: the
+    number of live lanes, as a 0-d int32 tensor, the one value the host
+    waits for."""
+    front_d = _f32(front_d)
+    if ids.is_cuda:
+        return _round.beam_merge(ids, dists, exp, front, fresh, front_d, live, step,
+                                 ndist, count, n=n, tombstones=tombstones,
+                                 max_steps=max_steps, max_rounds=max_rounds,
+                                 max_n_dist=max_n_dist)
+    return _ref.beam_merge_ref(ids, dists, exp, front, fresh, front_d, live, step,
+                               ndist, count, n=n, tombstones=tombstones,
+                               max_steps=max_steps, max_rounds=max_rounds,
+                               max_n_dist=max_n_dist)
+
+
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
     for mod in (_pqp, _hop, _adc, _hopfs, _adcfs, _hopg):
         mod.launches = 0
+    _round.launches_expand = _round.launches_merge = 0
     _adc.query_launches = 0
     _hop.launches_i32 = _adc.launches_i32 = _hopg.launches_i32 = 0
     _adc.query_launches_i32 = 0
@@ -245,7 +289,8 @@ def launch_counts() -> dict[str, int]:
     return {"pq_pairwise": _pqp.launches, "hop_adc": _hop.launches,
             "adc_scan_batch": _adc.launches, "hop_adc_fs": _hopfs.launches,
             "adc_scan_fs": _adcfs.launches, "adc_scan": _adc.query_launches,
-            "hop_gather": _hopg.launches, "hop_adc_i32": _hop.launches_i32,
+            "hop_gather": _hopg.launches, "beam_expand": _round.launches_expand,
+            "beam_merge": _round.launches_merge, "hop_adc_i32": _hop.launches_i32,
             "adc_scan_batch_i32": _adc.launches_i32,
             "adc_scan_i32": _adc.query_launches_i32,
             "hop_gather_i32": _hopg.launches_i32}

@@ -22,6 +22,14 @@ lane's own step count.
 neighbors deduplicated and scored in one call (DESIGN.md §9); ``expand=1``
 keeps the classic semantics, in-row duplicates included.
 
+A classic round (``expand=1``, no hop pruning) is three calls:
+``ops.beam_expand``, the distance call, ``ops.beam_merge``. On the card they
+are two kernels (``kernels/csrc/beam_round.cu``) that update the state in
+place and leave the live count in one device int; on the CPU their plain
+versions are the op chain below at E=1. Either way the results are the
+chain's, bit for bit. ``expand > 1`` and hop pruning run the op chain on
+every device.
+
 ``lanes_per_query=L`` runs L lanes per query (lane ``q·L + l``) against Q
 rows of LUTs: the sharded engines' S shard-local beams of one query, over
 the partition's block-diagonal graph, still one distance call a round.
@@ -57,11 +65,13 @@ distance function instead (a frozen snapshot's variant: dead ids score
 +inf, with neither the dead-entry rescue nor the scrub).
 
 With the recorder of :mod:`repro_torch.common.spans` on, the beam emits the
-span ``beam.init`` (from its start through the first ``bool(live.any())``)
-and one ``beam.round`` per round (the loop's body through the
-``bool(live.any())`` that decides the next round), and counts ``sync`` at
-each of those waits for the card and at each of the hop-pruning set-up's
-scalar copies to the card. Ops and their order are the same on and off.
+span ``beam.init`` (from its start through the first wait for the card,
+``bool(live.any())``) and one ``beam.round`` per round (the loop's body
+through the wait that decides the next round: ``bool(live.any())``, or the
+live count of a classic round), and counts ``sync`` at each of those waits
+and at each of the hop-pruning set-up's scalar copies to the card, and
+``beam.fused`` at each classic round (through ``ops.beam_expand`` and
+``ops.beam_merge``). Ops and their order are the same on and off.
 """
 
 from __future__ import annotations
@@ -74,6 +84,10 @@ import torch
 
 from repro_torch.common import spans
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import bit_get as _bit_get
+from repro_torch.kernels.ref import first_occurrence as _first_occurrence
+from repro_torch.kernels.ref import is_dead as _is_dead
+from repro_torch.kernels.ref import scatter_bits_ as _scatter_bits_
 from repro_torch.pq.pack import QuantizedLUT
 
 INF = float("inf")
@@ -108,44 +122,6 @@ class Trace:
     result: SearchResult
 
 
-def _bit_get(bits: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """(Q, W) int32 bitset, (Q, B) int64 ids → (Q, B) bool membership."""
-    words = bits.gather(1, idx >> 5)
-    return ((words >> (idx & 31).to(torch.int32)) & 1).bool()
-
-
-def _bit_masks(idx: torch.Tensor) -> torch.Tensor:
-    """(Q, B) int64 ids → int32 words with the id's one bit set (bit 31
-    wraps to the int32 sign bit, the same 32 bits as the JAX uint32)."""
-    return (torch.ones_like(idx) << (idx & 31)).to(torch.int32)
-
-
-def _first_occurrence(idx: torch.Tensor, on: torch.Tensor) -> torch.Tensor:
-    """Per row, True for the FIRST ``on`` lane holding each distinct id.
-
-    Stable-sort the ids (off lanes pushed to +max so they sort last), mark
-    lanes equal to their sorted predecessor as duplicates, scatter the
-    flags back — the JAX function's sort-based branch; its all-pairs branch
-    computes the same flags."""
-    key = torch.where(on, idx, torch.iinfo(torch.int64).max)
-    sk, order = torch.sort(key, dim=1, stable=True)
-    first_sorted = torch.ones_like(on)
-    first_sorted[:, 1:] = sk[:, 1:] != sk[:, :-1]
-    return torch.zeros_like(on).scatter_(1, order, first_sorted) & on
-
-
-def _scatter_bits_(bits: torch.Tensor, idx: torch.Tensor,
-                   on: torch.Tensor) -> None:
-    """Set bit ``idx`` of each row's bitset, in place, for every ``on`` lane.
-
-    Precondition: the ``on`` lanes of a row hold DISTINCT ids whose bits are
-    still clear. Then every (word, bit) contribution is unique and the
-    scatter-ADD equals the missing scatter-OR."""
-    word = torch.where(on, idx >> 5, 0)
-    mask = torch.where(on, _bit_masks(idx), 0)
-    bits.scatter_add_(1, word, mask)
-
-
 def _normalize_entries(entry, nq: int, device) -> torch.Tensor:
     """``entry`` as a (Q, S) int64 entry-set matrix: a shared vertex (int
     or 0-d) or one vertex per query ((Q,)) become (Q, 1); (Q, S) entry sets
@@ -169,15 +145,6 @@ def as_bitset(words, device) -> torch.Tensor:
         return words.to(device)
     w = np.asarray(words.cpu() if isinstance(words, torch.Tensor) else words)
     return torch.from_numpy(w.astype(np.uint32).view(np.int32).copy()).to(device)
-
-
-def _is_dead(tombstones: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
-    """(Q, B) ids → bool, True where the id is a tombstoned vertex; lookups
-    are guarded to [0, n) (sentinels and padding lanes are never dead)."""
-    ok = (idx >= 0) & (idx < n)
-    safe = torch.where(ok, idx, 0)
-    words = tombstones[safe >> 5]
-    return (((words >> (safe & 31).to(torch.int32)) & 1) != 0) & ok
 
 
 def beam_search(neighbors: torch.Tensor, entry, qdatas: torch.Tensor,
@@ -260,12 +227,13 @@ def _per_lane(fn: Callable, nq_data: int) -> Callable:
     return lane_fn
 
 
-def _any_live(live: torch.Tensor) -> bool:
-    """Whether any lane is still live: the host waits for the card here,
-    once before the first round and once after each."""
+def _going(flag: torch.Tensor) -> bool:
+    """Whether any lane is still live, from ``live.any()`` or the live
+    count: the host waits for the card here, once before the first round
+    and once after each."""
     if spans.on:
         spans.count("sync")
-    return bool(live.any())
+    return bool(flag)
 
 
 def _scalar(x: float, dev) -> torch.Tensor:
@@ -347,7 +315,6 @@ def _beam(neighbors, entry, qdatas, dist_fn, *, h, max_steps, expand,
     hops = torch.zeros(nq, dtype=torch.int32, device=dev)
     ndist = n_seeds * m_total if prune else n_seeds
     step = torch.zeros(nq, dtype=torch.int32, device=dev)
-    pad = torch.zeros((nq, e * r), dtype=torch.bool, device=dev)
     # the n_dist cap, in subspace units while pruning (as ndist is)
     nd_cap = (None if max_n_dist is None
               else int(max_n_dist) * (m_total if prune else 1))
@@ -357,6 +324,13 @@ def _beam(neighbors, entry, qdatas, dist_fn, *, h, max_steps, expand,
         tbi = torch.full((nq, trace_len, h), n, dtype=torch.int64, device=dev)
         tbd = torch.full((nq, trace_len, h), INF, dtype=torch.float32, device=dev)
         tbv = torch.zeros((nq, trace_len), dtype=torch.bool, device=dev)
+
+        def record(slot, rec):
+            # each live lane's ranked beam after the merge at slot ``step``
+            # (paper Def. 6); rounds beyond trace_len keep the last slot
+            tbi[lanes, slot] = torch.where(rec[:, None], ids, tbi[lanes, slot])
+            tbd[lanes, slot] = torch.where(rec[:, None], dists, tbd[lanes, slot])
+            tbv[lanes, slot] = tbv[lanes, slot] | rec
 
     def live_lanes():
         live = (step < max_steps) & (~exp & (dists < INF)).any(dim=1)
@@ -369,73 +343,93 @@ def _beam(neighbors, entry, qdatas, dist_fn, *, h, max_steps, expand,
         return live
 
     live = live_lanes()
-    going = _any_live(live)
+    going = _going(live.any())
     if sp >= 0:
         spans.end(sp)
-    while going:
-        sp = spans.begin("beam.round") if spans.on else -1
-        # 1. pick the best `e` unexpanded beam entries (ties → lower slot)
-        cand = torch.where(~exp & (dists < INF), dists, INF)
-        sel_d, sel = torch.sort(cand, dim=1, stable=True)
-        sel_d, sel = sel_d[:, :e], sel[:, :e]
-        sel_ok = (sel_d < INF) & live[:, None]
-        exp = exp.scatter(1, sel, exp.gather(1, sel) | sel_ok)
-        hops = hops + sel_ok.sum(dim=1, dtype=torch.int32)
-        # 2. expand the frontier: e·R neighbor ids minus pads and visited
-        src = torch.where(sel_ok, ids.gather(1, sel), 0)
-        nbr = neighbors[src].long()                         # (Q, e, R)
-        flat = nbr.reshape(nq, e * r)
-        valid = (sel_ok[:, :, None] & (nbr < n)).reshape(nq, e * r)
-        fresh = valid & ~_bit_get(visited, torch.where(valid, flat, 0))
-        if e > 1:
-            # two frontier rows may share a neighbor; keep the first lane
-            fresh = _first_occurrence(flat, fresh)
-            _scatter_bits_(visited, flat, fresh)
-        else:
-            # classic semantics: in-row duplicates stay fresh (scored
-            # twice); only the bitset update deduplicates
-            _scatter_bits_(visited, flat, _first_occurrence(flat, fresh))
-        # 3. ONE dist_fn call for the whole batch's frontier (two when
-        #    pruning: the prefix lower bound, then the lanes it keeps)
-        if prune:
-            tau = dists[:, h - 1:h]
-            d_lb = lb_dist_fn(qdatas, torch.where(fresh, flat, 0))
-            front = fresh & (d_lb * gate <= tau)
-            nd = torch.where(front, dist_fn(qdatas, torch.where(front, flat, 0)),
-                             INF)
-            ndist = ndist + (m_prefix * fresh.sum(dim=1, dtype=torch.int32)
-                             + m_total * front.sum(dim=1, dtype=torch.int32))
-        else:
-            front = fresh
-            nd = torch.where(fresh, dist_fn(qdatas, torch.where(fresh, flat, 0)),
-                             INF)
-            ndist = ndist + fresh.sum(dim=1, dtype=torch.int32)
-        if ts is not None:
-            # dead neighbors were scored (and counted) but rank +inf
-            nd = torch.where(_is_dead(ts, flat, n), INF, nd)
-        # 4. merge beam ∪ frontier, keep the h best (stable: ties → lower)
-        all_ids = torch.cat([ids, torch.where(front, flat, n)], dim=1)
-        all_d = torch.cat([dists, nd], dim=1)
-        all_e = torch.cat([exp, pad], dim=1)
-        new_d, order = torch.sort(all_d, dim=1, stable=True)
-        new_d, order = new_d[:, :h], order[:, :h]
-        keep = live[:, None]
-        ids = torch.where(keep, all_ids.gather(1, order), ids)
-        exp = torch.where(keep, all_e.gather(1, order) | (new_d == INF), exp)
-        dists = torch.where(keep, new_d, dists)
-        if trace_len:
-            # 5. record each live lane's ranked beam at slot step (paper
-            #    Def. 6); rounds beyond trace_len keep the last slot
-            slot = step.long().clamp(max=trace_len - 1)
-            rec = live & (step < trace_len)
-            tbi[lanes, slot] = torch.where(rec[:, None], ids, tbi[lanes, slot])
-            tbd[lanes, slot] = torch.where(rec[:, None], dists, tbd[lanes, slot])
-            tbv[lanes, slot] = tbv[lanes, slot] | rec
-        step = step + live.to(torch.int32)
-        live = live_lanes()
-        going = _any_live(live)
-        if sp >= 0:
-            spans.end(sp)
+    if e == 1 and not prune:
+        # the classic round: beam_expand, the distance call, beam_merge (the
+        # kernels on the card, the op chain below at E=1 on the CPU), the
+        # state updated in place and the live count the one value read back
+        nbrs = neighbors.to(torch.int32).contiguous()
+        count = torch.empty((), dtype=torch.int32, device=dev)
+        while going:
+            sp = spans.begin("beam.round") if spans.on else -1
+            front, fresh = kops.beam_expand(nbrs, ids, dists, exp, live, visited,
+                                            hops, ndist, count)
+            nd = dist_fn(qdatas, front)
+            if trace_len:
+                slot, rec = step.long().clamp(max=trace_len - 1), live & (step < trace_len)
+            kops.beam_merge(ids, dists, exp, front, fresh, nd, live, step, ndist,
+                            count, n=n, tombstones=ts, max_steps=max_steps,
+                            max_rounds=max_rounds, max_n_dist=nd_cap)
+            if trace_len:
+                record(slot, rec)
+            going = _going(count)
+            if sp >= 0:
+                spans.count("beam.fused")
+                spans.end(sp)
+    else:
+        pad = torch.zeros((nq, e * r), dtype=torch.bool, device=dev)
+        while going:
+            sp = spans.begin("beam.round") if spans.on else -1
+            # 1. pick the best `e` unexpanded beam entries (ties → lower slot)
+            cand = torch.where(~exp & (dists < INF), dists, INF)
+            sel_d, sel = torch.sort(cand, dim=1, stable=True)
+            sel_d, sel = sel_d[:, :e], sel[:, :e]
+            sel_ok = (sel_d < INF) & live[:, None]
+            exp = exp.scatter(1, sel, exp.gather(1, sel) | sel_ok)
+            hops = hops + sel_ok.sum(dim=1, dtype=torch.int32)
+            # 2. expand the frontier: e·R neighbor ids minus pads and visited
+            src = torch.where(sel_ok, ids.gather(1, sel), 0)
+            nbr = neighbors[src].long()                         # (Q, e, R)
+            flat = nbr.reshape(nq, e * r)
+            valid = (sel_ok[:, :, None] & (nbr < n)).reshape(nq, e * r)
+            fresh = valid & ~_bit_get(visited, torch.where(valid, flat, 0))
+            if e > 1:
+                # two frontier rows may share a neighbor; keep the first lane
+                fresh = _first_occurrence(flat, fresh)
+                _scatter_bits_(visited, flat, fresh)
+            else:
+                # classic semantics: in-row duplicates stay fresh (scored
+                # twice); only the bitset update deduplicates
+                _scatter_bits_(visited, flat, _first_occurrence(flat, fresh))
+            # 3. ONE dist_fn call for the whole batch's frontier (two when
+            #    pruning: the prefix lower bound, then the lanes it keeps)
+            if prune:
+                tau = dists[:, h - 1:h]
+                d_lb = lb_dist_fn(qdatas, torch.where(fresh, flat, 0))
+                front = fresh & (d_lb * gate <= tau)
+                nd = torch.where(front, dist_fn(qdatas, torch.where(front, flat, 0)),
+                                 INF)
+                ndist = ndist + (m_prefix * fresh.sum(dim=1, dtype=torch.int32)
+                                 + m_total * front.sum(dim=1, dtype=torch.int32))
+            else:
+                front = fresh
+                nd = torch.where(fresh, dist_fn(qdatas, torch.where(fresh, flat, 0)),
+                                 INF)
+                ndist = ndist + fresh.sum(dim=1, dtype=torch.int32)
+            if ts is not None:
+                # dead neighbors were scored (and counted) but rank +inf
+                nd = torch.where(_is_dead(ts, flat, n), INF, nd)
+            # 4. merge beam ∪ frontier, keep the h best (stable: ties → lower)
+            all_ids = torch.cat([ids, torch.where(front, flat, n)], dim=1)
+            all_d = torch.cat([dists, nd], dim=1)
+            all_e = torch.cat([exp, pad], dim=1)
+            new_d, order = torch.sort(all_d, dim=1, stable=True)
+            new_d, order = new_d[:, :h], order[:, :h]
+            keep = live[:, None]
+            ids = torch.where(keep, all_ids.gather(1, order), ids)
+            exp = torch.where(keep, all_e.gather(1, order) | (new_d == INF), exp)
+            dists = torch.where(keep, new_d, dists)
+            if trace_len:
+                # 5. record each live lane's ranked beam
+                record(step.long().clamp(max=trace_len - 1), live & (step < trace_len))
+            step = step + live.to(torch.int32)
+            live = live_lanes()
+            going = _going(live.any())
+            if sp >= 0:
+                spans.end(sp)
+
 
     if prune:
         # subspace units → full-LUT equivalents (a lone partial score still

@@ -7,6 +7,7 @@ installed:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import contextlib
 import os
 import pathlib
 import subprocess
@@ -25,6 +26,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 from repro_torch.pq import pack
 from repro_torch.pq.pack import QuantizedLUT
+from repro_torch.search import beam
 from repro_torch.storage import DiskEngine, write_segment
 
 pytestmark = pytest.mark.cuda
@@ -702,3 +704,210 @@ def test_reduced_gat_and_recsys_on_the_card_equal_the_cpu_route(dev):
         torch.testing.assert_close(out["cuda"][i].cpu(), out["cpu"][i], rtol=1e-5, atol=1e-5)
     _step_close(out["cuda"][0], out["cpu"][0], 5e-3)
     _step_close(out["cuda"][2], out["cpu"][2], 1e-3)
+
+
+# --------------------------------------------------------------------------
+# the classic beam round's kernels (csrc/beam_round.cu) against the op chain
+# they replace, run on the card through their plain versions
+# --------------------------------------------------------------------------
+
+FIELDS = ("ids", "dists", "hops", "n_dist", "rounds", "truncated")
+
+
+@contextlib.contextmanager
+def _plain_round():
+    """Route the beam's classic rounds through the plain versions (the op
+    chain) on the card."""
+    saved = ops.beam_expand, ops.beam_merge
+    ops.beam_expand, ops.beam_merge = ref.beam_expand_ref, ref.beam_merge_ref
+    try:
+        yield
+    finally:
+        ops.beam_expand, ops.beam_merge = saved
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _assert_same(a, b):
+    if isinstance(a, beam.Trace):
+        for name in ("beam_ids", "beam_dists", "hop_valid"):
+            assert torch.equal(_bits(getattr(a, name)), _bits(getattr(b, name))), name
+        a, b = a.result, b.result
+    for name in FIELDS:
+        assert torch.equal(_bits(getattr(a, name)), _bits(getattr(b, name))), name
+
+
+def _kernel_and_plain(run):
+    """``run()`` through the kernels and through the plain versions, both on
+    the card; the kernel run's launch counts beside."""
+    ops.reset_launch_counts()
+    got = run()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    with _plain_round():
+        want = run()
+    _assert_same(got, want)
+    return got, counts
+
+
+def _random_graph(rng, n, r, pad=0.15):
+    """A random graph with sentinel-padded rows: ~``pad`` of the slots and a
+    few whole rows point at the sentinel n; in-row duplicates happen."""
+    nbrs = rng.integers(0, n, (n, r)).astype(np.int32)
+    nbrs[rng.random((n, r)) < pad] = n
+    nbrs[rng.choice(n, n // 50, replace=False)] = n
+    return nbrs
+
+
+def _u8_case(dev, rng, n=20_000, r=64, q=300, m=16):
+    nbrs = torch.from_numpy(_random_graph(rng, n, r)).to(dev)
+    codes = ops.pad_sentinel_row(torch.from_numpy(
+        rng.integers(0, 256, (n, m)).astype(np.uint8))).to(dev)
+    luts = torch.from_numpy((rng.random((q, m, 256)) * 4.0).astype(np.float32)).to(dev)
+    entry = torch.from_numpy(rng.integers(0, n, q)).to(dev)
+    return nbrs, entry, luts, beam.make_adc_dist_fn(codes), codes
+
+
+@pytest.mark.parametrize("h,r", [(32, 64), (96, 64), (128, 64), (256, 64), (96, 24),
+                                 (96, 128), (1, 32)])
+def test_beam_round_kernels_equal_the_op_chain_u8(dev, h, r):
+    """``hop_adc`` routing at every beam width of the port's callers up to
+    the kernels' 256 (the benchmark's h = 96, R = 64), degrees off and at
+    the kernels' limit; rounds equal the launches."""
+    nbrs, entry, luts, fn, codes = _u8_case(dev, np.random.default_rng(h * 1000 + r), r=r)
+    res, counts = _kernel_and_plain(
+        lambda: beam.beam_search(nbrs, entry, luts, fn, h=h, max_steps=300))
+    rounds = int(res.rounds.max())
+    assert rounds > 1 and counts["beam_expand"] == counts["beam_merge"] == rounds
+    assert counts["hop_adc"] == rounds + 1
+
+
+def test_beam_round_kernels_equal_the_op_chain_fs4_ties(dev):
+    """``hop_adc_fs`` with uint8 LUTs of four levels: distances tie all the
+    time, so the merge's tie order decides the beam."""
+    rng = np.random.default_rng(4)
+    n, r, q, m = 20_000, 64, 300, 32
+    nbrs = torch.from_numpy(_random_graph(rng, n, r)).to(dev)
+    packed = ops.pad_sentinel_row(pack.pack_codes(torch.from_numpy(
+        rng.integers(0, 16, (n, m)).astype(np.uint8)))).to(dev)
+    ql = QuantizedLUT(torch.from_numpy(rng.integers(0, 4, (q, m, 16)).astype(np.uint8)),
+                      torch.from_numpy(rng.random(q).astype(np.float32) * 0.1),
+                      torch.from_numpy(rng.random(q).astype(np.float32))).to(dev)
+    entry = torch.from_numpy(rng.integers(0, n, q)).to(dev)
+    fn = beam.make_adc_dist_fn(packed, packed=True)
+    res, counts = _kernel_and_plain(lambda: beam.beam_search(nbrs, entry, ql, fn, h=96))
+    d = res.dists
+    assert bool((d[:, 1:] == d[:, :-1]).any())
+    assert counts["beam_expand"] == int(res.rounds.max())
+
+
+def test_beam_round_kernels_build_the_same_vamana_graph(dev):
+    """Exact ``dist_fn`` (a torch op, not a kernel) through a small Vamana
+    build on the card: the adjacency is identical."""
+    from repro_torch.graphs.vamana import build_vamana
+
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(4000, 24)).astype(np.float32))
+    ops.reset_launch_counts()
+    got = build_vamana(x, generator=torch.Generator().manual_seed(0), r=32, l=64,
+                       batch=512, device=dev)
+    assert ops.launch_counts()["beam_expand"] > 0
+    with _plain_round():
+        want = build_vamana(x, generator=torch.Generator().manual_seed(0), r=32, l=64,
+                            batch=512, device=dev)
+    assert torch.equal(got.neighbors, want.neighbors) and int(got.medoid) == int(want.medoid)
+
+
+def test_beam_round_kernels_tombstones_and_a_dead_entry(dev):
+    rng = np.random.default_rng(6)
+    nbrs, entry, luts, fn, codes = _u8_case(dev, rng)
+    n = nbrs.shape[0]
+    dead = rng.random(n) < 0.2
+    dead[int(entry[0])] = True                                 # a dead entry
+    words = np.zeros((n + 31) // 32, np.uint32)
+    np.bitwise_or.at(words, np.flatnonzero(dead) >> 5,
+                     (1 << (np.flatnonzero(dead) & 31)).astype(np.uint32))
+    res, _ = _kernel_and_plain(lambda: beam.beam_search(nbrs, entry, luts, fn, h=96,
+                                                        tombstones=words))
+    ids = res.ids[res.ids < n].long().cpu().numpy()
+    assert not dead[ids].any() and int(res.hops[0]) > 1
+
+
+@pytest.mark.parametrize("budget", [{"max_rounds": 7}, {"max_n_dist": 400},
+                                    {"max_rounds": 30, "max_n_dist": 900},
+                                    {"max_steps": 9}])
+def test_beam_round_kernels_budgets(dev, budget):
+    nbrs, entry, luts, fn, codes = _u8_case(dev, np.random.default_rng(7))
+    res, _ = _kernel_and_plain(lambda: beam.beam_search(nbrs, entry, luts, fn, h=96,
+                                                        **budget))
+    assert bool(res.truncated.any())
+
+
+def test_beam_round_kernels_lanes_per_query_and_entry_sets(dev):
+    """Four lanes a query (the sharded engines' shards), then (Q, S) entry
+    sets with padding and repeats."""
+    rng = np.random.default_rng(8)
+    nbrs, _, luts, fn, codes = _u8_case(dev, rng)
+    n, q = nbrs.shape[0], luts.shape[0]
+    lanes = torch.from_numpy(rng.integers(0, n, 4 * q)).to(dev)
+    res, counts = _kernel_and_plain(lambda: beam.beam_search(
+        nbrs, lanes, luts, fn, h=64, lanes_per_query=4))
+    assert res.ids.shape == (4 * q, 64) and counts["beam_expand"] == int(res.rounds.max())
+    sets = torch.from_numpy(rng.integers(-1, n, (q, 8))).to(dev)
+    sets[:, 1] = sets[:, 0]
+    _kernel_and_plain(lambda: beam.beam_search(nbrs, sets, luts, fn, h=96))
+
+
+def test_beam_round_kernels_trace(dev):
+    nbrs, entry, luts, fn, codes = _u8_case(dev, np.random.default_rng(9), q=200)
+    tr, counts = _kernel_and_plain(lambda: beam.beam_search_trace(
+        nbrs, entry, luts, fn, h=96, trace_len=16, max_rounds=40))
+    assert bool(tr.hop_valid[:, -1].any()) and bool(tr.hop_valid[:, 0].all())
+    assert counts["beam_merge"] == int(tr.result.rounds.max())
+
+
+def test_beam_round_counts_one_sync_a_round(dev):
+    """With spans on, ``sync`` reads one a round plus one, and every round is
+    a ``beam.fused`` one."""
+    from repro_torch.common import spans
+
+    nbrs, entry, luts, fn, codes = _u8_case(dev, np.random.default_rng(10))
+    beam.beam_search(nbrs, entry, luts, fn, h=96)
+    spans.enable(False)
+    spans.drain()
+    spans.enable(True)
+    try:
+        res = beam.beam_search(nbrs, entry, luts, fn, h=96)
+    finally:
+        spans.enable(False)
+    got, counts = spans.drain()
+    rounds = int(res.rounds.max())
+    assert sum(s.name == "beam.round" for s in got) == rounds
+    assert sum(v for (k, _), v in counts.items() if k == "sync") == rounds + 1
+    assert sum(v for (k, _), v in counts.items() if k == "beam.fused") == rounds
+
+
+@pytest.mark.parametrize("kw", [{"expand": 4},
+                                {"prune_eps": 0.3, "m_prefix": 4}])
+def test_expand_and_pruned_beams_keep_the_op_chain(dev, kw):
+    """``expand > 1`` and hop pruning launch neither round kernel and return
+    what the CPU route returns."""
+    nbrs, entry, luts, _, codes = _u8_case(dev, np.random.default_rng(11))
+    res = {}
+    for where in (dev, torch.device("cpu")):
+        c = codes.to(where)
+        extra = {"expand": kw.get("expand", 1)}
+        if "m_prefix" in kw:
+            extra.update(m_prefix=kw["m_prefix"], m_total=c.shape[1],
+                         prune_eps=kw["prune_eps"],
+                         lb_dist_fn=beam.make_adc_dist_fn(c, m_prefix=kw["m_prefix"]))
+        ops.reset_launch_counts()
+        res[where.type] = beam.beam_search(nbrs.to(where), entry.to(where), luts.to(where),
+                                           beam.make_adc_dist_fn(c), h=96, **extra)
+        counts = ops.launch_counts()
+        assert counts["beam_expand"] == counts["beam_merge"] == 0
+    for name in FIELDS:
+        assert torch.equal(_bits(getattr(res["cuda"], name).cpu()),
+                           _bits(getattr(res["cpu"], name))), name

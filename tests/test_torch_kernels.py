@@ -231,7 +231,8 @@ def test_launch_counts_reset_and_cpu_path_launches_nothing():
     assert tops.launch_counts() == {"pq_pairwise": 0, "hop_adc": 0,
                                     "adc_scan_batch": 0, "hop_adc_fs": 0,
                                     "adc_scan_fs": 0, "adc_scan": 0,
-                                    "hop_gather": 0, "hop_adc_i32": 0,
+                                    "hop_gather": 0, "beam_expand": 0,
+                                    "beam_merge": 0, "hop_adc_i32": 0,
                                     "adc_scan_batch_i32": 0, "adc_scan_i32": 0,
                                     "hop_gather_i32": 0}
 

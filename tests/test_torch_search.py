@@ -380,3 +380,226 @@ def test_launch_counters_see_no_cpu_launches(setup):
     InMemoryEngine(setup["tgraph"], T(setup["codes_uniq"]), tlut,
                    device="cpu").search(T(setup["q"]))
     assert sum(tops.launch_counts().values()) == 0
+
+
+# --------------------------------------------------------------------------
+# The classic round's plain versions (kernels/ref.py) against the rules the
+# CUDA kernels of csrc/beam_round.cu follow, written out here in numpy: the
+# pick is the first unexpanded finite slot of the sorted beam, and the
+# merge places each frontier entry by counting the entries ranked before it
+# and lets the beam fill the places left in its own order.
+# --------------------------------------------------------------------------
+
+def _order_key(d):
+    """The kernels' sort key of f32 distances: -0 as +0, NaN above +inf."""
+    d = np.asarray(d, np.float32)
+    b = np.where(d == 0, np.float32(0), d).view(np.uint32).astype(np.int64)
+    key = np.where(b & 0x80000000, ~b & 0xFFFFFFFF, b | 0x80000000)
+    return np.where(np.isnan(d), 0xFFFFFFFF, key)
+
+
+def _first_unexpanded_finite(dists, exp):
+    ok = ~exp & (dists < np.inf)
+    return np.where(ok.any(axis=1), ok.argmax(axis=1), -1)
+
+
+def _counted_merge(bd, bi, be, fd, fi):
+    """One lane: frontier slot j goes to #{frontier keys below it, or equal
+    and before it} + #{beam keys at or below it} (an upper bound in the
+    sorted beam); the beam slots keep their order in the places left, slot
+    i in the i-th; the first h places are the new beam."""
+    h, r = len(bd), len(fd)
+    kb, kf = _order_key(bd), _order_key(fd)
+    assert (np.diff(kb) >= 0).all()                      # the beam is sorted
+    before = (kf[None, :] < kf[:, None]) | ((kf[None, :] == kf[:, None])
+                                            & (np.arange(r)[None, :] < np.arange(r)[:, None]))
+    place_f = before.sum(axis=1) + np.searchsorted(kb, kf, side="right")
+    place_b = np.setdiff1d(np.arange(h + r), place_f)[:h]
+    out_d, out_i, out_e = np.empty(h, np.float32), np.empty(h, np.int64), np.empty(h, bool)
+    for places, d, i, e in ((place_b, bd, bi, be),
+                            (place_f, fd, fi, np.zeros(r, bool))):
+        for p, dd, ii, ee in zip(places, d, i, e):
+            if p < h:
+                out_d[p], out_i[p], out_e[p] = dd, ii, ee or dd == np.inf
+    assert sorted(np.concatenate([place_b, place_f])) == list(range(h + r))
+    return out_d, out_i, out_e
+
+
+def _round_state(dists, exp, n, nwords):
+    q, h = dists.shape
+    ids = torch.from_numpy(np.where(dists < np.inf, np.arange(q * h).reshape(q, h) % n,
+                                    n)).long()
+    return dict(ids=ids, dists=T(dists.astype(np.float32)), exp=T(exp),
+                visited=torch.zeros((q, nwords), dtype=torch.int32),
+                hops=torch.zeros(q, dtype=torch.int32),
+                ndist=torch.ones(q, dtype=torch.int32),
+                count=torch.full((), 7, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("kind", ["all_expanded", "all_inf", "mixed", "not_live"])
+def test_round_pick_is_the_first_unexpanded_finite_slot(kind):
+    rng = np.random.default_rng(3)
+    q, h, n, r = 6, 40, 50, 8
+    dists = np.sort(rng.integers(0, 6, (q, h)).astype(np.float32), axis=1)  # ties
+    exp = rng.random((q, h)) < 0.5
+    if kind == "all_expanded":
+        exp[:] = True
+    elif kind == "all_inf":
+        dists[:] = np.inf
+    else:
+        dists[:, h - 5:] = np.inf
+        exp[0, :] = True                         # an all-expanded row among them
+        exp[1, :h - 5] = True                    # only +inf left unexpanded
+    live = torch.full((q,), kind != "not_live")
+    st = _round_state(dists, exp, n, (n + 31) // 32 + 1)
+    before = st["exp"].clone()
+    nbrs = torch.from_numpy(rng.integers(0, n + 1, (n, r)).astype(np.int32))
+    front, fresh = tops.beam_expand(nbrs, st["ids"], st["dists"], st["exp"], live,
+                                    st["visited"], st["hops"], st["ndist"], st["count"])
+    want = _first_unexpanded_finite(dists, exp) if kind != "not_live" else np.full(q, -1)
+    got = st["exp"].numpy() & ~before.numpy()
+    assert (got.sum(axis=1) <= 1).all()
+    np.testing.assert_array_equal(np.where(got.any(axis=1), got.argmax(axis=1), -1), want)
+    np.testing.assert_array_equal(st["hops"].numpy(), want >= 0)
+    assert not fresh[torch.from_numpy(want < 0)].any()
+    assert (front[~fresh] == 0).all() and front.dtype == torch.int32
+    assert int(st["count"]) == 0
+    if kind == "mixed":
+        assert (want >= 0).sum() >= 3 and (want < 0).sum() == 2
+
+
+def _merge_case(rng, q, h, r, n, ties):
+    """A sorted beam with +inf tails and a frontier full of ties: integer
+    distances, some slots not fresh, tombstoned ids among the fresh."""
+    bd = np.sort(rng.integers(0, ties, (q, h)).astype(np.float32), axis=1)
+    bd[:, h - h // 4:] = np.inf
+    be = rng.random((q, h)) < 0.4
+    be |= bd == np.inf
+    bi = np.where(bd < np.inf, rng.integers(0, n, (q, h)), n)
+    fd = rng.integers(0, ties, (q, r)).astype(np.float32)
+    fi = rng.integers(0, n, (q, r)).astype(np.int32)
+    fresh = rng.random((q, r)) < 0.7
+    return bd, be, bi, fd, np.where(fresh, fi, 0).astype(np.int32), fresh
+
+
+@pytest.mark.parametrize("h,r,ties", [(8, 6, 3), (32, 16, 4), (96, 64, 20)])
+def test_round_merge_ranks_beam_first_then_lower_slot(h, r, ties):
+    rng = np.random.default_rng(h + r)
+    q, n = 5, 90
+    bd, be, bi, fd, fi, fresh = _merge_case(rng, q, h, r, n, ties)
+    tomb = np.zeros((n + 31) // 32, np.uint32)
+    dead = rng.choice(n, 25, replace=False)
+    np.bitwise_or.at(tomb, dead >> 5, (1 << (dead & 31)).astype(np.uint32))
+    live = np.array([True, True, False, True, True])
+    ids, dists, exp = T(bi).long(), T(bd), T(be)
+    step = torch.zeros(q, dtype=torch.int32)
+    count = torch.zeros((), dtype=torch.int32)
+    tops.beam_merge(ids, dists, exp, T(fi), T(fresh), T(fd), T(live), step,
+                    torch.zeros(q, dtype=torch.int32), count, n=n,
+                    tombstones=tbeam.as_bitset(tomb, "cpu"), max_steps=10)
+    is_dead = ((tomb[fi >> 5] >> (fi & 31)) & 1) == 1
+    fd_eff = np.where(fresh & ~is_dead, fd, np.inf).astype(np.float32)
+    fi_eff = np.where(fresh, fi, n)
+    for lane in range(q):
+        if live[lane]:
+            want = _counted_merge(bd[lane], bi[lane], be[lane], fd_eff[lane], fi_eff[lane])
+        else:
+            want = (bd[lane], bi[lane], be[lane])
+        np.testing.assert_array_equal(dists[lane].numpy(), want[0])
+        np.testing.assert_array_equal(ids[lane].numpy(), want[1])
+        np.testing.assert_array_equal(exp[lane].numpy(), want[2])
+    np.testing.assert_array_equal(step.numpy(), live)
+    # +inf entries that carry ids: a tombstoned fresh slot keeps its id
+    carried = fresh & is_dead & live[:, None]
+    assert carried.any()
+    pending = (~exp.numpy() & (dists.numpy() < np.inf)).any(axis=1)
+    assert int(count) == int((pending & (step.numpy() < 10)).sum())
+
+
+def test_round_merge_tie_order_by_hand():
+    """Beam (1, 2, inf, inf, inf) and frontier (2, 1, 2 tombstoned, 0 not
+    fresh): the beam's 1 before the frontier's 1, the beam's 2 before the
+    frontier's; the dead entry ranks +inf with its id, after the beam's +inf
+    slots, as does the slot not fresh with the sentinel id, so neither
+    enters the beam."""
+    n = 10
+    ids = torch.tensor([[4, 5, n, n, n]])
+    dists = torch.tensor([[1.0, 2.0] + [float("inf")] * 3])
+    exp = torch.tensor([[True, False, True, True, True]])
+    front = torch.tensor([[6, 7, 8, 0]], dtype=torch.int32)
+    fresh = torch.tensor([[True, True, True, False]])
+    tomb = tbeam.as_bitset(np.array([1 << 8], np.uint32), "cpu")
+    live, step = torch.tensor([True]), torch.zeros(1, dtype=torch.int32)
+    count = torch.zeros((), dtype=torch.int32)
+    tops.beam_merge(ids, dists, exp, front, fresh, torch.tensor([[2.0, 1.0, 2.0, 0.0]]),
+                    live, step, torch.zeros(1, dtype=torch.int32), count, n=n,
+                    tombstones=tomb, max_steps=4)
+    assert ids.tolist() == [[4, 7, 5, 6, n]]
+    assert dists.tolist() == [[1.0, 1.0, 2.0, 2.0, float("inf")]]
+    assert exp.tolist() == [[True, False, False, False, True]]
+    assert step.tolist() == [1] and live.tolist() == [True] and int(count) == 1
+    want = _counted_merge(np.array([1, 2] + [np.inf] * 3, np.float32),
+                          np.array([4, 5, n, n, n]), np.array([1, 0, 1, 1, 1], bool),
+                          np.array([2, 1, np.inf, np.inf], np.float32),
+                          np.array([6, 7, 8, n]))
+    assert want[1].tolist() == ids[0].tolist()
+
+
+def test_round_expand_scores_an_in_row_duplicate_twice_and_sets_its_bit_once():
+    n, h = 40, 4
+    nbrs = torch.full((n, 6), n, dtype=torch.int32)
+    nbrs[3] = torch.tensor([9, 33, 9, n, 33, 2], dtype=torch.int32)
+    st = _round_state(np.array([[0.5, np.inf, np.inf, np.inf]], np.float32),
+                      np.array([[False, True, True, True]]), n, (n + 31) // 32 + 1)
+    st["ids"][0, 0] = 3
+    st["visited"][0, 0] = 1 << 2                   # vertex 2 already visited
+    front, fresh = tops.beam_expand(nbrs, st["ids"], st["dists"], st["exp"],
+                                    torch.tensor([True]), st["visited"], st["hops"],
+                                    st["ndist"], st["count"])
+    assert fresh.tolist() == [[True, True, True, False, True, False]]
+    assert front.tolist() == [[9, 33, 9, 0, 33, 0]]
+    assert st["visited"][0].tolist() == [(1 << 2) | (1 << 9), 1 << 1, 0]
+    assert st["ndist"].tolist() == [1 + 4] and st["hops"].tolist() == [1]
+    assert st["exp"].tolist() == [[True, True, True, True]]
+
+
+def test_round_wrappers_refuse_what_the_kernels_do_not_take():
+    from repro_torch.kernels import beam_round
+    q, h, n, r = 3, 8, 20, 4
+    nbrs = torch.zeros((n, r), dtype=torch.int32)
+    ids = torch.zeros((q, h), dtype=torch.int64)
+    dists = torch.zeros((q, h))
+    exp = torch.zeros((q, h), dtype=torch.bool)
+    live = torch.ones(q, dtype=torch.bool)
+    vis = torch.zeros((q, 2), dtype=torch.int32)
+    cnt = torch.zeros(q, dtype=torch.int32)
+    count = torch.zeros((), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):          # a CPU beam
+        beam_round.beam_expand(nbrs, ids, dists, exp, live, vis, cnt, cnt, count)
+    with pytest.raises(ValueError, match="CUDA"):
+        beam_round.beam_merge(ids, dists, exp, nbrs[:q], exp[:, :r], dists[:, :r],
+                              live, cnt, cnt, count, n=n, max_steps=4)
+    for bad_h, bad_r in ((0, 4), (257, 4), (8, 0), (8, 129)):
+        with pytest.raises(ValueError, match="h <= 256"):
+            beam_round._limits("beam_expand", torch.zeros((q, bad_h)), bad_h, bad_r)
+    with pytest.raises(ValueError, match="CUDA"):
+        beam_round._limits("beam_expand", ids, 256, 128)
+    cpu = ids.get_device()                                 # -1
+    beam_round._check("beam_merge", cpu, (("ids", ids, torch.int64, (q, h)),))
+    for t, dtype, shape in ((ids.int(), torch.int64, (q, h)),       # dtype
+                            (ids, torch.int64, (q, h + 1)),         # shape
+                            (ids[:, :h], torch.int64, (q, h, 1)),   # rank
+                            (ids.t(), torch.int64, (h, q))):         # layout
+        with pytest.raises(ValueError, match="contiguous"):
+            beam_round._check("beam_merge", cpu, (("ids", t, dtype, shape),))
+    with pytest.raises(ValueError, match="on cuda:0, got .* on cpu"):  # device
+        beam_round._check("beam_merge", 0, (("ids", ids, torch.int64, (q, h)),))
+
+
+def test_round_entry_points_launch_nothing_on_the_cpu(setup):
+    tops.reset_launch_counts()
+    codes_p = np.concatenate([setup["codes_uniq"], np.zeros((1, M), np.uint8)])
+    tbeam.beam_search(setup["tgraph"].neighbors, setup["tgraph"].medoid,
+                      T(setup["jluts"]), tbeam.make_adc_dist_fn(T(codes_p)), h=16)
+    counts = tops.launch_counts()
+    assert counts["beam_expand"] == counts["beam_merge"] == 0

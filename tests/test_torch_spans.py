@@ -98,7 +98,8 @@ def test_one_span_tree_per_call(recorder, kind):
         rounds = int(res.rounds.max())
         assert inner == ["beam.init"] + ["beam.round"] * rounds
         assert _syncs(counts, call) == rounds + 1
-    assert {name for name, _ in counts} == {"sync"}
+        assert counts[("beam.fused", call)] == rounds     # every round classic
+    assert {name for name, _ in counts} == {"sync", "beam.fused"}
 
 
 @pytest.mark.parametrize("opts", OPTS, ids=lambda o: ",".join(o) or "classic")
@@ -117,6 +118,8 @@ def test_recorder_off_records_nothing_and_changes_nothing(recorder, opts):
     prune_copies = 1 if opts.get("prune_eps") else 0
     assert _syncs(counts, call) == int(on.rounds.max()) + 1 + prune_copies
     assert sum(s.name == "beam.round" for s in got) == int(on.rounds.max())
+    classic = not (opts.get("expand", 1) > 1 or opts.get("prune_eps"))
+    assert counts.get(("beam.fused", call), 0) == (int(on.rounds.max()) if classic else 0)
 
 
 def test_pruned_beam_without_scale_counts_each_copy(recorder):
@@ -190,5 +193,6 @@ def test_sync_counter_matches_sync_debug_mode(recorder, how):
     spans.enable(False)
     _, counts = spans.drain()
     reported = sum("synchroniz" in str(w.message) for w in caught)
-    assert {name for name, _ in counts} == {"sync"}
-    assert reported == sum(counts.values()) > int(res.rounds.max())
+    syncs = sum(v for (name, _), v in counts.items() if name == "sync")
+    assert {name for name, _ in counts} <= {"sync", "beam.fused"}
+    assert reported == syncs > int(res.rounds.max())
