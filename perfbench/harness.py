@@ -4,18 +4,23 @@
 --trace <0|1>`` from the root of a checkout. The cell's entry in
 ``BENCHMARK.json`` names its configuration (``perfbench/configs/<name>.json``)
 and its traffic mix (``perfbench/traffic/<name>.json``); each metric the
-cell reports is read by ``perfbench/metrics/<metric>.py``. Nothing of a
-configuration, a mix or a metric is written here, so a cell, a mix or a
-metric is added by adding files and entries.
+cell reports is read by ``perfbench/metrics/<metric>.py``. A configuration
+may name its serving engine (``"engine"``, made by
+``perfbench/engines/<engine>.py``; default ``hybrid``), and a mix whose
+``mode`` is neither ``closed`` nor ``open`` is driven by
+``perfbench/modes/<mode>.py``. Nothing of a configuration, a mix, an
+engine, a mode or a metric is written here, so each is added by adding
+files and entries.
 
 A run: set-up (the base from the configuration's data seed, the program's
-index from the cache or built, the resident codes, one warm-up call of each
-shape), the window (the mix driving ``HybridEngine.search``; a traced run
-then starts the profiler and runs a short second window of the same mix
-under it, so the measured window runs as in an untraced run), then, with the
-program's state freed, the comparison with the plain reference. It prints
-the numbers compared beside their limits as the last lines of standard
-error, and one JSON line as the last line of standard output.
+index from the cache or built, the resident codes, the engine, one warm-up
+call of each shape), the window (the mix driving the engine's ``search``,
+and a writing mode its writes between calls; a traced run then starts the
+profiler and runs a short second window of the same mix under it, so the
+measured window runs as in an untraced run), then, with the program's state
+freed, the comparison with the plain reference. It prints the numbers
+compared beside their limits as the last lines of standard error, and one
+JSON line as the last line of standard output.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from perfbench import checks, gen, index, reference, traffic
+from perfbench import checks, gen, index, traffic
 from perfbench import trace as tracing
 
 BENCH = Path(__file__).resolve().parent
@@ -59,14 +64,34 @@ def load_data(kind: str, name: str, bench: Path = BENCH) -> dict:
     return json.loads(path.read_text())
 
 
-def load_reader(name: str, bench: Path = BENCH):
-    """The module ``perfbench/metrics/<name>.py``."""
-    path = bench / "metrics" / f"{name}.py"
+def load_module(folder: str, name: str, bench: Path = BENCH):
+    """The module ``perfbench/<folder>/<name>.py``."""
+    path = bench / folder / f"{name}.py"
+    if not path.is_file():
+        raise SystemExit(f"perfbench: no module {path}")
     spec = importlib.util.spec_from_file_location(
-        "perfbench_metric_" + name.replace(".", "_").replace("-", "_"), path)
+        f"perfbench_{folder}_" + name.replace(".", "_").replace("-", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_reader(name: str, bench: Path = BENCH):
+    """The metric reader ``perfbench/metrics/<name>.py``."""
+    return load_module("metrics", name, bench)
+
+
+def load_mode(mix: dict, bench: Path = BENCH):
+    """The module that drives a mix whose ``mode`` is neither of
+    ``traffic.py``'s ``closed`` and ``open``: ``perfbench/modes/<mode>.py``,
+    with ``warm_shapes(mix)``, the query batch sizes its windows send, and
+    ``driver(setup, seed, seconds)``, which returns ``window(length)``, a
+    function that drives one window and returns its ``traffic.Window``. A
+    driver may call the engine's own write methods between search calls,
+    never inside one, logs them in a ``traffic.Writes`` that the window
+    carries, and records each call's place in that log (``Call.log_pos``).
+    None for ``closed`` and ``open``."""
+    return None if mix["mode"] in ("closed", "open") else load_module("modes", mix["mode"], bench)
 
 
 def cell_metrics(bench: dict, cell: str, section: str) -> list:
@@ -107,6 +132,9 @@ class Setup:
     x: torch.Tensor
     idx: index.Index
     device: object
+    routing: tuple            # (module, entry point) of the routing kernel the check samples
+    mode: object = None       # the mix's mode module; None for closed and open
+    phases: dict = None       # seconds of set-up by phase
 
 
 def setup(cell: dict, device, overrides: dict = None, use_cache: bool = True,
@@ -117,14 +145,36 @@ def setup(cell: dict, device, overrides: dict = None, use_cache: bool = True,
     mix = load_data("traffic", cell["traffic"], bench_dir)
     for key, val in (overrides or {}).items():
         (cfg if key in cfg else mix if key in mix else cfg["data"])[key] = val
+    phases = Phases(device)
     data = data_spec(cfg)
     x = gen.base(data, device)
-    idx = index.load_or_build(cfg, x, device, use_cache=use_cache)
+    phases.mark("base")
+    engine_mod = load_module("engines", cfg.get("engine", "hybrid"), bench_dir)
+    phases.mark("engine_import")
+    idx = index.load_or_build(cfg, x, device, engine_mod.make, use_cache=use_cache,
+                              mark=phases.mark)
+    mode = load_mode(mix, bench_dir)
     warm = gen.QueryStream(data, data["seed"], device)
-    shapes = [mix["batch"]] if mix["mode"] == "closed" else [mix["max_batch"], 1]
+    shapes = (mode.warm_shapes(mix) if mode else
+              [mix["batch"]] if mix["mode"] == "closed" else [mix["max_batch"], 1])
     for n in shapes:
         traffic.search(idx.engine, warm.take(n), cfg["k"], cfg["beam_h"])
-    return Setup(cfg, mix, data, x, idx, device)
+        phases.mark(f"warm_{n}")
+    routing = getattr(engine_mod, "ROUTING", None) or checks.ROUTING[cfg["layout"]]
+    return Setup(cfg, mix, data, x, idx, device, routing, mode, phases.spent)
+
+
+class Phases:
+    """Seconds of set-up by phase, each closed once the device is done."""
+
+    def __init__(self, device):
+        self.device, self.spent, self.t = device, {}, time.perf_counter()
+
+    def mark(self, name: str) -> None:
+        if self.device != "cpu":
+            torch.cuda.synchronize()
+        now = time.perf_counter()
+        self.spent[name], self.t = now - self.t, now
 
 
 def data_spec(cfg: dict) -> dict:
@@ -202,23 +252,27 @@ def run_window(st: Setup, seed: int, seconds: float, *, trace_readers=(),
     Returns (window, traced window or None, trace or None, recorders, taps,
     the profiler's own cost in seconds or None)."""
     cfg, mix, eng = st.cfg, st.mix, st.idx.engine
-    if mix["mode"] == "open":
+    if st.mode is not None:
+        window = st.mode.driver(st, seed, seconds)
+    elif mix["mode"] == "open":
         due = traffic.arrivals(mix, seed, seconds)
         queries = gen.pooled(st.data, len(due), mix["query_seed"], seed, st.device)
+
+        def window(length):
+            n = int(np.searchsorted(due, length))
+            return traffic.open_loop(eng, queries[:n], due[:n], mix, cfg["k"], cfg["beam_h"],
+                                     length)
     else:
         stream = gen.QueryStream(st.data, seed, st.device)
 
-    def window(length):
-        if mix["mode"] == "closed":
+        def window(length):
             return traffic.closed_loop(eng, stream, mix, cfg["k"], cfg["beam_h"], length)
-        n = int(np.searchsorted(due, length))
-        return traffic.open_loop(eng, queries[:n], due[:n], mix, cfg["k"], cfg["beam_h"], length)
 
     def sync():
         if st.device != "cpu" and torch.cuda.is_available():
             torch.cuda.synchronize()
 
-    taps = Taps(eng, checks.ROUTING[cfg["layout"]], lut_rows, adc_marks(seed, seconds))
+    taps = Taps(eng, st.routing, lut_rows, adc_marks(seed, seconds))
     recorders, tracer, traced, trace = {}, None, None, None
     sync()
     gc.collect()
@@ -258,21 +312,27 @@ def outputs(st: Setup, wins: list, taps: Taps) -> checks.Outputs:
     any) produced, for the comparison."""
     lq, luts = taps.tables()
     qs, ids, dists = ([t for w in wins for t in getattr(w, f)] for f in ("queries", "ids", "dists"))
+    calls = [c for w in wins for c in w.calls]
+    writes = next((w.writes for w in wins if w.writes is not None), None)
     return checks.Outputs(
         queries=torch.cat(qs) if qs else st.x[:0],
         ids=torch.cat(ids) if ids else torch.zeros((0, st.cfg["k"]), dtype=torch.int32),
         dists=torch.cat(dists) if dists else torch.zeros((0, st.cfg["k"])),
         unanswered=sum(w.attempted - w.answered for w in wins), lut_queries=lq, luts=luts,
-        codes=st.idx.codes, adc=taps.adc)
+        codes=st.idx.codes, adc=taps.adc,
+        pos=torch.tensor([c.log_pos for c in calls], dtype=torch.int64).repeat_interleave(
+            torch.tensor([c.n for c in calls], dtype=torch.int64)),
+        writes=writes)
 
 
 def window_recall(out: checks.Outputs, x: torch.Tensor, seed: int, k: int) -> float:
-    """Recall@k of the window's answers against the reference's exact top-k:
-    every answer, or RECALL_MAX of them drawn from the seed."""
+    """Recall@k of the window's answers against the reference's exact top-k
+    over the rows live at each one's call: every answer, or RECALL_MAX of
+    them drawn from the seed."""
     pick = torch.randperm(out.ids.shape[0],
                           generator=gen.generator("cpu", seed, gen.SAMPLE))[:RECALL_MAX]
-    truth = reference.exact_topk(x, out.queries[pick.to(x.device)], k)
-    return checks.recall(out.ids[pick], truth, k)
+    got, truth = checks.neighbours(out, x, pick, k)
+    return checks.recall(got, truth, k)
 
 
 def forbidden_modules(names=FORBIDDEN) -> list:
@@ -304,6 +364,7 @@ def main(argv=None, *, t_start: float = None, device: str = "cuda",
     """One run; returns the exit code. ``device="cpu"`` skips the look for
     a card and ``forbidden=()`` the look for JAX (in-process tests only)."""
     t_start = time.perf_counter() if t_start is None else t_start
+    t_main = time.perf_counter()
     args = parse(argv)
     bench = load_benchmark(root)
     cell = find_cell(bench, args.workload)
@@ -322,11 +383,13 @@ def main(argv=None, *, t_start: float = None, device: str = "cuda",
     chosen = layer if args.trace else e2e
     readers = {m["name"]: load_reader(m["name"], bench_dir) for m in chosen}
 
+    t_setup = time.perf_counter()
     st = setup(cell, device, overrides, bench_dir=bench_dir)
     if device != "cpu":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     setup_s = time.perf_counter() - t_start
+    phases = {"imports": t_main - t_start, "before_setup": t_setup - t_main, **st.phases}
     win, traced, trace, recorders, taps, tracer_cost = run_window(
         st, args.seed, args.seconds,
         trace_readers=list(readers.values()) if args.trace else ())
@@ -369,6 +432,11 @@ def main(argv=None, *, t_start: float = None, device: str = "cuda",
     # whether this run built the index (a checkout's first run) and how long
     # building or loading it took, inside setup_s
     result["index"] = index_info
+    # where set-up's seconds went: the imports before main(), main's own
+    # look for the card and the cell, then each phase of setup()
+    result["setup_phases"] = phases
+    print("perfbench: set-up " + ", ".join(f"{k} {v:.3f} s" for k, v in phases.items()),
+          file=sys.stderr)
     result["checks"] = table
     for name, v in table.items():
         print(f"check {name} {v['value']!r} limit {v['limit']!r}", file=sys.stderr)

@@ -1,6 +1,8 @@
 """The system under test, set up through the program: a Vamana graph over
 the base and an RPQ quantizer trained on it, cached in the checkout, then
-the resident codes and a ``HybridEngine``.
+the resident codes and the configuration's serving engine, which
+``perfbench/engines/<engine>.py`` makes from them (``hybrid`` where the
+configuration names none).
 
 The cache (``perfbench/.cache/index-<key>.pt``) holds the graph and the
 trained quantizer's state. Its key is the configuration's name, its data
@@ -75,17 +77,23 @@ def _build(cfg: dict, x: torch.Tensor, device) -> dict:
             "log_alpha": state.params.log_alpha.detach().cpu()}
 
 
-def load_or_build(cfg: dict, x: torch.Tensor, device, *, use_cache: bool = True) -> Index:
+def load_or_build(cfg: dict, x: torch.Tensor, device, make_engine, *,
+                  use_cache: bool = True, mark=lambda name: None) -> Index:
     """The cell's engine over base ``x``: the cached graph and quantizer, or
-    a fresh build saved to the cache."""
+    a fresh build saved to the cache, made into the serving engine by
+    ``make_engine(cfg, graph, model, codes, x, device)`` (an engine
+    module's ``make``). The engine is no build setting and stays out of
+    the cache key. ``mark(name)`` closes each phase of the set-up's
+    timing."""
     from repro_torch.core.quantizer import RPQParams
     from repro_torch.core.trainer import to_model
     from repro_torch.graphs.adjacency import Graph
     from repro_torch.pq import base as pqbase
     from repro_torch.pq.pack import pack_codes
-    from repro_torch.search.engine import HybridEngine
 
+    mark("index_imports")
     path = CACHE / f"index-{cache_key(cfg)}.pt"
+    mark("index_key")
     t0 = time.perf_counter()
     built = not (use_cache and path.exists())
     if built:
@@ -98,18 +106,17 @@ def load_or_build(cfg: dict, x: torch.Tensor, device, *, use_cache: bool = True)
     else:
         state = torch.load(path, map_location="cpu")
     build_s = time.perf_counter() - t0
+    mark("index_load")
     graph = Graph(neighbors=state["neighbors"].to(device), medoid=state["medoid"].to(device))
     params = RPQParams(state["theta"].to(device), state["codebooks"].to(device),
                        state["log_alpha"].to(device))
     model = to_model(_rpq_cfg(cfg), params)
+    mark("index_to_device")
     codes = pqbase.encode(model, x)
-    fs4 = cfg["layout"] == "fs4"
-    if fs4:
+    if cfg["layout"] == "fs4":
         codes = pack_codes(codes)
-
-    def lut_fn(q):
-        return pqbase.build_lut(model, q, quantize=fs4)
-
-    engine = HybridEngine(graph, codes, lut_fn, vectors=x, device=device)
+    mark("index_encode")
+    engine = make_engine(cfg, graph, model, codes, x, device)
+    mark("index_engine")
     return Index(engine, codes, params.theta.detach(), params.codebooks.detach(),
                  built, build_s)

@@ -5,7 +5,8 @@ Imports nothing of the program. From the program's trained quantizer (the
 rotation generator ``theta`` and the codebooks, the state that set-up
 trains) it derives the rotation, the base's codes and the queries' lookup
 tables itself; from the benchmark's own base and queries it computes exact
-squared distances and the exact top-k.
+squared distances and the exact top-k. Where a window wrote, it replays the
+window's log (:func:`replay`) for the rows live at each call.
 
 Every function takes ``tf32``: ``False`` is the reference, full float32
 with TF32 off; ``True`` is the control, the same arithmetic with the
@@ -19,6 +20,7 @@ float32 from TF32.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 
 import torch
 
@@ -207,3 +209,69 @@ def _ranked(ids: torch.Tensor, d: torch.Tensor, k: int):
     ids, d = ids.gather(1, by_id), d.gather(1, by_id)
     order = torch.argsort(d, dim=1, stable=True)[:, :k]
     return ids.gather(1, order), d.gather(1, order)[:, -1]
+
+
+@dataclasses.dataclass
+class Live:
+    """The rows live at one point of a write log: ``live`` (n_keys,) bool
+    over the keys (``[0, n_base)`` the base rows, then the inserted rows in
+    order), and ``id_to_key`` (n_ids,), the engine's map from its ids to
+    keys in force there (-1: the id names no row)."""
+    live: torch.Tensor
+    id_to_key: torch.Tensor
+
+    def __post_init__(self):
+        self._on = {}
+
+    def _map(self, device) -> tuple:
+        if device not in self._on:
+            self._on[device] = (self.id_to_key.to(device), self.live.to(device))
+        return self._on[device]
+
+    def keys(self, ids: torch.Tensor) -> torch.Tensor:
+        """The keys of the rows that engine ids name; -1 where an id names none."""
+        ids = ids.long()
+        m = self._map(ids.device)[0]
+        ok = (ids >= 0) & (ids < m.shape[0])
+        return torch.where(ok, m[torch.where(ok, ids, 0)], -1)
+
+    def alive(self, keys: torch.Tensor) -> torch.Tensor:
+        """Whether each key names a live row."""
+        return (keys >= 0) & self._map(keys.device)[1][keys.clamp_min(0)]
+
+    def rows(self, vectors: torch.Tensor):
+        """(the live rows of ``vectors``, one row a key, and their keys), or
+        (``vectors``, None) where every key is live."""
+        if bool(self.live.all()):
+            return vectors, None
+        keys = torch.nonzero(self.live).flatten().to(vectors.device)
+        return vectors[keys], keys
+
+
+def replay(n_base: int, log: list, positions):
+    """(p, :class:`Live`) after the first p entries of a write log, for each
+    p of ``positions`` (ascending): the base rows, plus each inserted key,
+    minus each deleted one; each insert's ids name its keys, and a remap
+    replaces the map. Entries: ``("insert", keys, ids)``, ``("delete",
+    keys)``, ``("remap", id_to_key)``."""
+    n_keys = n_base + sum(len(e[1]) for e in log if e[0] == "insert")
+    live = torch.zeros(n_keys, dtype=torch.bool)
+    live[:n_base] = True
+    id_to_key = torch.arange(n_base)
+    done = 0
+    for p in positions:
+        for entry in log[done:p]:
+            keys = torch.as_tensor(entry[1], dtype=torch.int64)
+            if entry[0] == "insert":
+                ids = torch.as_tensor(entry[2], dtype=torch.int64)
+                live[keys] = True
+                grow = int(ids.max()) + 1 - id_to_key.shape[0] if ids.numel() else 0
+                if grow > 0:
+                    id_to_key = torch.cat([id_to_key, torch.full((grow,), -1)])
+                id_to_key[ids] = keys
+            elif entry[0] == "delete":
+                live[keys] = False
+            else:
+                id_to_key = keys.clone()
+        done = p
+        yield p, Live(live.clone(), id_to_key.clone())

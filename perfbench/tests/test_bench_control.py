@@ -4,10 +4,12 @@ comparison, and so does a run whose timed path is broken underneath, once
 for each fault a search cell can have. The harness's look for a card is
 skipped (``device="cpu"``); the rest of a run is driven as it is."""
 
+import dataclasses
+
 import pytest
 import torch
 
-from perfbench import checks, harness
+from perfbench import checks, gen, harness, reference
 from perfbench.tests.conftest import TINY, run_cpu, tiny_args
 
 CELLS = ("sift1m-u8.offline", "deep1m-fs4.online")
@@ -128,3 +130,66 @@ def test_routing_at_lower_precision_is_not_correct(cell, index_cache, monkeypatc
     adc = "adc_flips" if layout == "fs4" else "adc_err"
     assert rc == 0 and res["correct"] is False, res["checks"]
     assert res["checks"][adc]["value"] > res["checks"][adc]["limit"], res["checks"]
+
+
+def _whole_base_id_faults(ids, dists, n, k):
+    """The read-only comparison as it stood before write logs: an id
+    outside [0, n) is a fault."""
+    bad = (ids < 0).any(1) | (ids >= n).any(1) | ~torch.isfinite(dists).all(1)
+    if ids.shape[1] != k:
+        return ids.shape[0]
+    s, _ = torch.sort(ids.long(), dim=1)
+    bad |= (s[:, 1:] == s[:, :-1]).any(1)
+    bad |= (dists[:, 1:] < dists[:, :-1]).any(1)
+    return int(bad.sum())
+
+
+def _whole_base_dist_err(out, x):
+    n, worst, scales = x.shape[0], 0.0, []
+    for s in range(0, out.ids.shape[0], checks.BLOCK):
+        ids = out.ids[s:s + checks.BLOCK].to(x.device).long()
+        d = out.dists[s:s + checks.BLOCK].to(x.device).float()
+        ok = (ids >= 0) & (ids < n)
+        d_ref = reference.pair_distances(out.queries[s:s + checks.BLOCK], x[torch.where(ok, ids, 0)])
+        gap = torch.where(ok & torch.isfinite(d), (d - d_ref).abs(), 0.0)
+        worst = max(worst, float(gap.max()) if gap.numel() else 0.0)
+        scales.append(d_ref[ok])
+    scale = float(torch.cat(scales).median()) if scales else 1.0
+    return worst / max(scale, 1e-30)
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_read_only_path_judges_against_the_whole_base(cell, index_cache):
+    """A mix that writes nothing leaves the log empty: the live set is the
+    base and ids are keys, so the check table, the control's answers and
+    the recall are the numbers of the comparison over the whole base, with
+    ``reference.exact_topk`` over the whole base as the recall's yardstick."""
+    st = harness.setup(harness.find_cell(harness.load_benchmark(), cell), "cpu", TINY)
+    win, _, _, _, taps, _ = harness.run_window(st, 3, 1.0)
+    out = harness.outputs(st, [win], taps)
+    assert out.writes is None and out.pos.shape[0] == out.ids.shape[0] and not out.pos.any()
+    k, n = st.cfg["k"], st.x.shape[0]
+    pick = torch.randperm(out.ids.shape[0],
+                          generator=gen.generator("cpu", 3, gen.SAMPLE))[:harness.RECALL_MAX]
+    truth = reference.exact_topk(st.x, out.queries[pick], k)
+    rec = harness.window_recall(out, st.x, 3, k)
+    assert rec == checks.recall(out.ids[pick], truth, k)
+    theta, cb = st.idx.theta, st.idx.codebooks
+    got = checks.readings(out, st.x, theta, cb, st.cfg, rec)
+    assert got["id_faults"] == out.unanswered + _whole_base_id_faults(out.ids, out.dists, n, k)
+    assert got["dist_err"] == _whole_base_dist_err(out, st.x)
+    # ids outside the base, below it and twice: the same faults either way
+    ids = out.ids.clone()
+    ids[0, 0], ids[1, 1], ids[2, 1] = n, -1, ids[2, 0]
+    bad = dataclasses.replace(out, ids=ids)
+    assert checks.readings(bad, st.x, theta, cb, st.cfg, rec)["id_faults"] == \
+        out.unanswered + _whole_base_id_faults(ids, out.dists, n, k) >= 3
+    assert checks.readings(bad, st.x, theta, cb, st.cfg, rec)["dist_err"] == \
+        _whole_base_dist_err(bad, st.x)
+    ctl = checks.control(out, st.x, theta, cb, st.cfg)
+    for s in range(0, out.ids.shape[0], checks.BLOCK):
+        blk = out.ids[s:s + checks.BLOCK].long().clamp(0, n - 1)
+        d = reference.pair_distances(out.queries[s:s + checks.BLOCK], st.x[blk], tf32=True)
+        d, order = torch.sort(d, dim=1, stable=True)
+        assert torch.equal(ctl.ids[s:s + checks.BLOCK], blk.gather(1, order).to(ctl.ids.dtype))
+        assert torch.equal(ctl.dists[s:s + checks.BLOCK], d)

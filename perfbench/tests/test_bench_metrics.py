@@ -48,6 +48,19 @@ def test_traced_run_profiles_a_window_after_the_measured_one(index_cache):
     assert t.window[0] <= t.spans[0][1] and t.spans[-1][2] <= t.window[1] + 1e-3
 
 
+def test_set_up_phases_in_order(index_cache):
+    """Set-up reports its seconds by phase, in the order they ran, one
+    warm-up phase for each shape the mix sends."""
+    from perfbench.tests.conftest import TINY
+
+    st = harness.setup(harness.find_cell(harness.load_benchmark(), "deep1m-fs4.online"),
+                       "cpu", TINY)
+    assert list(st.phases) == ["base", "engine_import", "index_imports", "index_key",
+                               "index_load", "index_to_device", "index_encode",
+                               "index_engine", f"warm_{TINY['max_batch']}", "warm_1"]
+    assert all(v >= 0 for v in st.phases.values())
+
+
 def test_p95_over_every_query():
     lat = np.arange(1, 101) / 1000.0           # 1..100 ms
     got = harness.load_reader("latency_p95_ms").read(record(CALLS, lat))

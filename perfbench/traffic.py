@@ -14,6 +14,10 @@ A mix's ``mode`` says how queries reach the engine:
   are all served, up to ``drain_s`` past the close, and a query's latency
   counts from its due time to its results being on the host.
 
+Any other ``mode`` names a module ``perfbench/modes/<mode>.py`` (see
+``harness.load_mode``), whose window may write to the engine between its
+search calls and keeps a :class:`Writes` log of them.
+
 Every call's results come to the host before the next call starts.
 """
 
@@ -40,6 +44,64 @@ class Call:
     rounds: int
     n_dist: int
     hops: int
+    log_pos: int = 0          # entries of the window's write log made before the call
+
+
+@dataclasses.dataclass
+class Writes:
+    """The writes of a run's windows, in window order, for the reference to
+    replay. Rows have stable keys: ``[0, n_base)`` are the base rows and the
+    j-th inserted row gets ``n_base + j``. Entries of ``log``:
+
+    - ``("insert", keys, ids)``: rows inserted, and the ids the engine gave them;
+    - ``("delete", keys)``: rows deleted, by key;
+    - ``("remap", id_to_key)``: after a consolidation, the engine's new map
+      from ids to keys (-1: the id names no row).
+
+    ``vectors`` holds the inserted rows in key order. A driver logs through
+    :meth:`insert`, :meth:`delete` and :meth:`renumber`, which also keep its
+    own view of which keys are live and under which id; the reference reads
+    only the log and the vectors."""
+    n_base: int
+    log: list = dataclasses.field(default_factory=list)
+    vectors: list = dataclasses.field(default_factory=list)
+
+    def __post_init__(self):
+        self.key_to_id = np.arange(self.n_base)
+        self.live = np.ones(self.n_base, bool)
+
+    def insert(self, vectors: torch.Tensor, ids) -> np.ndarray:
+        """Log rows that the engine acknowledged under ``ids``; returns their keys."""
+        ids = np.asarray(ids, np.int64)
+        keys = np.arange(len(ids)) + len(self.key_to_id)
+        self.log.append(("insert", keys, ids))
+        self.vectors.append(vectors)
+        self.key_to_id = np.concatenate([self.key_to_id, ids])
+        self.live = np.concatenate([self.live, np.ones(len(ids), bool)])
+        return keys
+
+    def delete(self, keys) -> None:
+        """Log keys whose delete the engine acknowledged."""
+        keys = np.asarray(keys, np.int64)
+        self.log.append(("delete", keys))
+        self.live[keys] = False
+
+    def renumber(self, old2new) -> None:
+        """Log the map from ids to keys after a consolidation that moved the
+        row under each old id to ``old2new[id]`` (-1: dropped)."""
+        old2new = np.asarray(old2new, np.int64)
+        named = np.flatnonzero(self.key_to_id >= 0)
+        new = old2new[self.key_to_id[named]]
+        kept = new >= 0
+        id_to_key = np.full(int(new.max(initial=-1)) + 1, -1)
+        id_to_key[new[kept]] = named[kept]
+        self.log.append(("remap", id_to_key))
+        self.key_to_id = np.full(len(self.key_to_id), -1)
+        self.key_to_id[named[kept]] = new[kept]
+
+    def live_keys(self) -> np.ndarray:
+        """Keys live now that the engine names by an id."""
+        return np.flatnonzero(self.live & (self.key_to_id >= 0))
 
 
 @dataclasses.dataclass
@@ -54,6 +116,7 @@ class Window:
     answered_in_window: int   # answered by the window's close
     late_s: float = 0.0       # open loop: the latest a call started after
     #                           the oldest query it took was due
+    writes: Writes = None     # a writing mode's log; None: the window wrote nothing
 
     @property
     def answered(self) -> int:
